@@ -3,14 +3,17 @@
 The port runs ``paffy view`` (``-s``, ``-t``, ``-u``, ``-v``, ``-a``) with its
 per-column compare in hand-written CUDA kernels for ``sm_90a``
 (``csrc/*.cu``, built with ``nvcc`` on first use, see ``kernels``).  It
-imports ``torch`` and never JAX.
+imports ``torch``, never JAX, and nothing of ``paffy_tpu``.
 
-Shared with ``paffy_tpu`` rather than copied: the host layer, which imports
-no JAX -- PAF/FASTA I/O and ``PafTable`` (``paffy_tpu.core``), the C++
-helpers over ctypes (``paffy_tpu.native``), the M-run column batch builder
-(``paffy_tpu.ops.segments``), the cigar stats (``paffy_tpu.ops.transforms``)
-and the command plumbing (``paffy_tpu.commands.common``).  Only modules of
-``paffy_tpu`` that touch JAX get a twin here.
+It owns its host layer, each module a counterpart of paffy_tpu's of the same
+name: the C++ helpers over ctypes (``native``, a copy of paffy_tpu's
+``paffy_io.cpp`` that g++ builds on first use into ``_build/``), PAF parsing
+and ``PafTable`` (``core``), the M-run column batch (``ops.segments``), the
+cigar stats (``ops.transforms``), the command plumbing
+(``commands.common``) and logging (``utils.logging``).  The tests hold each
+against paffy_tpu's on the same inputs.  Unlike paffy_tpu it keeps no
+numpy or Python second path: a failed g++ build raises, as a failed nvcc
+build does.
 
 Device rule (``devconf.device``): ``PAFFY_TPU_PLATFORM=cpu`` selects the CPU
 and the kernels' plain PyTorch versions; otherwise the device is ``cuda:0``,

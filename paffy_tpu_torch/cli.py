@@ -1,12 +1,10 @@
-"""``paffy-torch <cmd>``: the port's command line (twin of
-paffy_tpu/cli.py:41 ``paffy_main``).  Only ``view`` is ported; every other
-command exits 1 and says so."""
+"""``paffy-torch <cmd>``: the port's command line (counterpart of
+paffy_tpu/cli.py:41 ``paffy_main`` and :80 ``_run``).  Only ``view`` is
+ported; every other command exits 1 and says so."""
 
 from __future__ import annotations
 
 import sys
-
-from paffy_tpu.cli import _run
 
 
 def _usage(fh=sys.stderr):
@@ -15,6 +13,20 @@ def _usage(fh=sys.stderr):
     fh.write("available commands:\n")
     fh.write(f"    {'view':<24} Pretty print and extract stats about PAF "
              "alignments\n\n")
+
+
+def _run(m, rest) -> int:
+    """Run a command's main, then end its staged output with the stdio
+    semantics of the reference's death (commands/common.GlibcWriter:
+    errAbort flushes the sub-block tail, assert or SIGSEGV loses it)."""
+    from paffy_tpu_torch.commands import common
+    try:
+        rc = m(rest)
+    except BaseException as e:
+        common.end_writers(error=e)
+        raise
+    common.end_writers()
+    return rc
 
 
 def paffy_main(argv=None) -> int:

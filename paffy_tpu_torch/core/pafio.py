@@ -1,0 +1,148 @@
+"""PAF text -> PafTable, and the paf_check sweep (counterpart of
+paffy_tpu/core/pafio.py: parse, ``format_record``, ``paf_check``).
+
+The behavioural contract is the reference parser (impl/paf.c:137-209: tab
+tokenizer, strand validation, tag dispatch on the two-character code,
+unknown tags dropped; cigars of M/I/D/=/X only, impl/paf.c:70-111) and
+paf_check (impl/paf.c:427-461), both in the native library.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from paffy_tpu_torch import native
+from paffy_tpu_torch.core.model import INT_MAX, OP_TO_CHAR, PafTable
+
+_CHECK_MESSAGES = ("Paf query start coordinates are invalid",
+                   "Paf query end coordinates are invalid",
+                   "Paf target start coordinates are invalid",
+                   "Paf target end coordinates are invalid",
+                   "Paf cigar alignment does not match query length",
+                   "Paf cigar alignment does not match target length")
+
+
+class PafFormatError(ValueError):
+    """Malformed PAF input.  ``line_no`` (when known) is the 1-based line
+    number within the data passed to the failing parse call, so a streaming
+    caller can emit the records before it."""
+
+    def __init__(self, msg, line_no=None):
+        super().__init__(msg)
+        self.line_no = line_no
+
+
+def parse_paf_text(text: str) -> PafTable:
+    """Parse PAF text (one record per line, latin-1) into a PafTable."""
+    return parse_paf_data(text.encode("latin-1"))
+
+
+def parse_paf_data(data: bytes, parse_cigars: bool = True,
+                   validate_cigars: bool = False) -> PafTable:
+    """Parse PAF bytes into a PafTable with the native tokenizer.
+
+    ``parse_cigars=False`` keeps each cg tag as an unparsed byte range
+    (``PafTable.raw_cg``, the reference's parse_cigar_string=0 mode);
+    ``validate_cigars`` (raw mode only) applies the full parser's cigar
+    acceptance rule and parses fully when a cigar is non-canonical (a
+    length with a leading zero).
+    """
+    if not parse_cigars:
+        table = _parse_native_raw(data, validate_cigars)
+        if table is not None:
+            return table
+    return _parse_native(data)
+
+
+def _table(ints, flags, rtype, qnames, tnames, **cigar) -> PafTable:
+    return PafTable(
+        qname=qnames, qlen=ints[:, 0].copy(), qstart=ints[:, 1].copy(),
+        qend=ints[:, 2].copy(), strand=(flags & 1).astype(bool),
+        tname=tnames, tlen=ints[:, 3].copy(), tstart=ints[:, 4].copy(),
+        tend=ints[:, 5].copy(), num_matches=ints[:, 6].copy(),
+        num_bases=ints[:, 7].copy(), mapq=ints[:, 8].copy(),
+        score=ints[:, 9].copy(), tile_level=ints[:, 10].copy(),
+        chain_id=ints[:, 11].copy(), chain_score=ints[:, 12].copy(),
+        type=rtype, has_cigar=(flags & 2).astype(bool), **cigar)
+
+
+def _parse_native_raw(data: bytes, validate_cigars: bool) -> PafTable | None:
+    try:
+        res = native.parse_paf_bytes_raw(data, validate_cigars)
+    except native.NativeParseError as e:
+        raise PafFormatError(str(e), e.line_no) from e
+    if res == "noncanon":
+        return None
+    ints, flags, rtype, qnames, tnames, cg_start, cg_len = res
+    return _table(ints, flags, rtype, qnames, tnames,
+                  ops=np.zeros(0, dtype=np.uint8),
+                  lens=np.zeros(0, dtype=np.int64),
+                  off=np.zeros(len(flags) + 1, dtype=np.int64),
+                  raw_cg=(data, cg_start, cg_len))
+
+
+def _parse_native(data: bytes) -> PafTable:
+    try:
+        res = native.parse_paf_bytes(data)
+    except native.NativeParseError as e:
+        raise PafFormatError(str(e), e.line_no) from e
+    ints, flags, rtype, qnames, tnames, ops, lens, off = res
+    return _table(ints, flags, rtype, qnames, tnames, ops=ops, lens=lens,
+                  off=off)
+
+
+def cigar_to_string(ops: np.ndarray, lens: np.ndarray) -> str:
+    return "".join(f"{int(n)}{OP_TO_CHAR[int(o)]}" for o, n in zip(ops, lens))
+
+
+def format_record(t: PafTable, i: int) -> str:
+    """One record as a PAF line without its newline (paf_print; tag rules
+    of impl/paf.c:317-389)."""
+    line = "\t".join([
+        str(t.qname[i]), str(t.qlen[i]), str(t.qstart[i]), str(t.qend[i]),
+        "+" if t.strand[i] else "-",
+        str(t.tname[i]), str(t.tlen[i]), str(t.tstart[i]), str(t.tend[i]),
+        str(t.num_matches[i]), str(t.num_bases[i]), str(t.mapq[i])])
+    ty, tl = int(t.type[i]), int(t.tile_level[i])
+    if ty != 0 or tl != -1:
+        line += "\ttp:A:" + (chr(ty) if ty != 0 else ("S" if tl > 1 else "P"))
+    if int(t.score[i]) != INT_MAX:
+        line += f"\tAS:i:{int(t.score[i])}"
+    if tl != -1:
+        line += f"\ttl:i:{tl}"
+    if int(t.chain_id[i]) != -1:
+        line += f"\tcn:i:{int(t.chain_id[i])}"
+    if int(t.chain_score[i]) != -1:
+        line += f"\ts1:i:{int(t.chain_score[i])}"
+    if t.has_cigar[i]:
+        if t.raw_cg is not None:
+            buf, cs, cl = t.raw_cg
+            line += "\tcg:Z:" + bytes(
+                buf[int(cs[i]): int(cs[i]) + int(cl[i])]).decode("latin-1")
+        else:
+            s, e = t.off[i], t.off[i + 1]
+            line += "\tcg:Z:" + cigar_to_string(t.ops[s:e], t.lens[s:e])
+    return line
+
+
+class PafCheckError(ValueError):
+    """A record failed paf_check.  ``table``/``record_index`` name the first
+    bad record of the checked table, so a streaming caller can emit the
+    records before it."""
+
+    def __init__(self, msg, table=None, record_index=None):
+        super().__init__(msg)
+        self.table = table
+        self.record_index = record_index
+
+
+def paf_check(t: PafTable) -> None:
+    """Raise PafCheckError at the first record whose coordinates are out of
+    bounds or whose cigar spans differ from its query/target lengths
+    (paf_check, impl/paf.c:427-461)."""
+    if len(t) == 0:
+        return
+    bad, code = native.paf_check_batch(t)
+    if bad >= 0:
+        raise PafCheckError(f"{_CHECK_MESSAGES[code]}, {format_record(t, bad)}",
+                            table=t, record_index=bad)

@@ -12,8 +12,8 @@ C interface (every entry point launches on the given stream, allocates
 nothing, and returns ``cudaGetLastError()``; ``check`` raises on non-zero):
 
     int paffy_build_ext(const u8* pool, i64 L, u8* ext, cudaStream_t s)
-    int paffy_piece_counts(const u8* ext, const i64* table, i64 n_pieces,
-                           i64 pieces_per_block, u64* match, cudaStream_t s)
+    int paffy_piece_counts(const u8* ext, i64 ext_len, const i64* table,
+                           i64 n_pieces, u64* match, cudaStream_t s)
     const char* paffy_error_string(int code)
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds one
@@ -109,7 +109,7 @@ def load() -> ctypes.CDLL:
             vp, i64 = ctypes.c_void_p, ctypes.c_int64
             lib.paffy_build_ext.argtypes = [vp, i64, vp, vp]
             lib.paffy_build_ext.restype = ctypes.c_int
-            lib.paffy_piece_counts.argtypes = [vp, vp, i64, i64, vp, vp]
+            lib.paffy_piece_counts.argtypes = [vp, i64, vp, i64, vp, vp]
             lib.paffy_piece_counts.restype = ctypes.c_int
             lib.paffy_error_string.argtypes = [ctypes.c_int]
             lib.paffy_error_string.restype = ctypes.c_char_p

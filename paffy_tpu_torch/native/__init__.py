@@ -1,0 +1,515 @@
+"""ctypes bindings of the port's native C++ host library (counterpart of
+paffy_tpu/native/__init__.py, for the entry points the port calls).
+
+``paffy_io.cpp`` here is the port's own copy of paffy_tpu's.  On first use
+it is compiled by ``g++`` into ``paffy_tpu_torch/_build/`` (git-ignored)
+under a name that carries a hash of the source, the flags and the CPU's
+features, so an edited source or another CPU rebuilds, as ``kernels`` does
+for the CUDA sources.  A failed build raises: the port has no second, numpy
+path for any of these passes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+_SRC = Path(__file__).resolve().parent / "paffy_io.cpp"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
+
+_lock = threading.Lock()
+_lib = None
+
+_I64P = ctypes.POINTER(ctypes.c_longlong)
+_U8P = ctypes.POINTER(ctypes.c_ubyte)
+_LL = ctypes.c_longlong
+_CP = ctypes.c_char_p
+
+
+def _cpu_features() -> bytes:
+    """The CPU's feature flags: ``-march=native`` code built for one CPU
+    may not run on another, so a copied build directory must not be
+    reused on a different machine."""
+    try:
+        with open("/proc/cpuinfo", "rb") as fh:
+            for line in fh:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return platform.machine().encode()
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+    h.update(_cpu_features())
+    h.update(_SRC.read_bytes())
+    return BUILD_DIR / f"libpaffy_io_{h.hexdigest()[:16]}.so"
+
+
+def _build() -> Path:
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = ["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=300)
+    except OSError as e:
+        raise RuntimeError(f"g++ not found ({e}); the host library of "
+                           f"paffy_tpu_torch cannot be built") from e
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+# (name, restype, argtypes) of every entry point bound here
+_SIGNATURES = (
+    ("paf_scan", _LL, [_CP, _LL, _I64P, _I64P, _I64P]),
+    ("paf_fill", _LL, [_CP, _LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _U8P,
+                       _I64P, _I64P]),
+    ("paf_scan_mt", _LL, [_CP, _LL, _LL, _I64P, _I64P, _I64P, _I64P,
+                          _I64P]),
+    ("paf_fill_mt", _LL, [_CP, _LL, _LL, _I64P, _I64P, _I64P, _I64P, _I64P,
+                          _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _U8P, _I64P,
+                          _I64P]),
+    ("paf_scan_raw_mt", _LL, [_CP, _LL, _LL, _I64P, _I64P, _I64P, _I64P]),
+    ("paf_fill_raw_mt", _LL, [_CP, _LL, _LL, _I64P, _I64P, _I64P, _I64P,
+                              _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _I64P,
+                              _I64P, _LL, _I64P]),
+    ("pack_ints13", None, [_LL, ctypes.POINTER(_I64P), _I64P, _LL]),
+    ("cigar_stats", None, [_LL, _U8P, _I64P, _I64P, _I64P]),
+    ("cigar_stats_raw", None, [_LL, _CP, _I64P, _I64P, _I64P, _LL]),
+    ("paf_check_batch", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P, _I64P,
+                              _I64P, _I64P, _I64P, _U8P, _I64P]),
+    ("copy_op_ranges", None, [_LL, _I64P, _I64P, _I64P, _U8P, _I64P, _U8P,
+                              _I64P, _LL]),
+    ("build_mop_batch", _LL, [_LL, _U8P, _I64P, _I64P, _U8P, _I64P, _I64P,
+                              _I64P, _I64P, _I64P, _I64P, _I64P, _I64P,
+                              _I64P, _U8P, _I64P, _I64P, _I64P]),
+    ("view_stats_lines", _LL, [_LL, _I64P, _I64P, _CP, _I64P, _CP]),
+    ("view_render_batch", None, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P,
+                                 _I64P, _U8P, _U8P, _I64P, _I64P, _I64P,
+                                 _I64P, _CP, _I64P, _I64P, _CP, _LL]),
+    ("fasta_scan", None, [_CP, _LL, _I64P, _I64P, _I64P]),
+    ("fasta_fill_headers", None, [_CP, _LL, _CP, _I64P, _I64P]),
+    ("fasta_fill", None, [_CP, _LL, _CP, _I64P, _I64P, _I64P, _U8P]),
+    ("column_compare_counts", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P,
+                                     _I64P, _I64P, _I64P]),
+    ("synth_query_pool", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P, _LL,
+                                ctypes.c_ulonglong]),
+)
+
+
+def get_lib():
+    """The loaded library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            for name, restype, argtypes in _SIGNATURES:
+                fn = getattr(lib, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _lib = lib
+        return _lib
+
+
+def _p_i64(a: np.ndarray):
+    return a.ctypes.data_as(_I64P)
+
+
+def _p_u8(a: np.ndarray):
+    return a.ctypes.data_as(_U8P)
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _u8(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.uint8)
+
+
+def _default_threads(n_threads):
+    return min(os.cpu_count() or 1, 8) if n_threads is None else n_threads
+
+
+class NativeParseError(ValueError):
+    """Malformed PAF input.  ``line_no`` is the 1-based line number within
+    the data passed to the failing parse call, so a streaming caller can
+    emit the records before it (the reference writes record-at-a-time)."""
+
+    def __init__(self, msg, line_no=None):
+        super().__init__(msg)
+        self.line_no = line_no
+
+
+_PARSE_MT_BYTES = 4 << 20   # thread the parse above 4 MB of input
+
+
+def _names(raw: bytes, qoff, toff, n):
+    qnames = np.empty(n, dtype=object)
+    tnames = np.empty(n, dtype=object)
+    for i in range(n):
+        qnames[i] = raw[qoff[i]: raw.index(b"\0", qoff[i])].decode("latin-1")
+        tnames[i] = raw[toff[i]: raw.index(b"\0", toff[i])].decode("latin-1")
+    return qnames, tnames
+
+
+def parse_paf_bytes(data: bytes, n_threads: int | None = None):
+    """Parse PAF text with the native tokenizer (threaded above 4 MB:
+    newline-aligned shards whose counts are cumsummed into the fill pass's
+    base offsets; identical arrays and error line numbers).
+
+    Returns (ints[n,13], flags[n], type[n], qnames, tnames, ops, lens, off).
+    """
+    lib = get_lib()
+    nt = _default_threads(n_threads) if len(data) >= _PARSE_MT_BYTES else 1
+    if nt > 1:
+        bounds = np.empty(nt + 1, dtype=np.int64)
+        s_rec, s_ops, s_names, s_lines = (np.empty(nt, dtype=np.int64)
+                                          for _ in range(4))
+        rc = lib.paf_scan_mt(data, len(data), nt, _p_i64(bounds),
+                             _p_i64(s_rec), _p_i64(s_ops), _p_i64(s_names),
+                             _p_i64(s_lines))
+        if rc != 0:
+            raise NativeParseError(f"malformed PAF at line {rc}", rc)
+        n, t_ops, nb = int(s_rec.sum()), int(s_ops.sum()), int(s_names.sum())
+    else:
+        n_rec, n_ops, name_bytes = _LL(), _LL(), _LL()
+        rc = lib.paf_scan(data, len(data), ctypes.byref(n_rec),
+                          ctypes.byref(n_ops), ctypes.byref(name_bytes))
+        if rc != 0:
+            raise NativeParseError(f"malformed PAF at line {rc}", rc)
+        n, t_ops, nb = n_rec.value, n_ops.value, name_bytes.value
+    ints = np.empty((n, 13), dtype=np.int64)
+    flags = np.empty(n, dtype=np.uint8)
+    rtype = np.empty(n, dtype=np.uint8)
+    qoff = np.empty(n, dtype=np.int64)
+    toff = np.empty(n, dtype=np.int64)
+    pool = np.empty(max(nb, 1), dtype=np.uint8)
+    ops = np.empty(t_ops, dtype=np.uint8)
+    lens = np.empty(t_ops, dtype=np.int64)
+    off = np.empty(n + 1, dtype=np.int64)
+    if nt > 1:
+        def base(c):
+            b = np.zeros(nt, dtype=np.int64)
+            np.cumsum(c[:-1], out=b[1:])
+            return b
+        rc = lib.paf_fill_mt(data, len(data), nt, _p_i64(bounds),
+                             _p_i64(base(s_rec)), _p_i64(base(s_ops)),
+                             _p_i64(base(s_names)), _p_i64(s_lines),
+                             _p_i64(ints), _p_u8(flags), _p_u8(rtype),
+                             _p_i64(qoff), _p_i64(toff),
+                             pool.ctypes.data_as(_CP),
+                             _p_u8(ops), _p_i64(lens), _p_i64(off))
+    else:
+        rc = lib.paf_fill(data, len(data), _p_i64(ints), _p_u8(flags),
+                          _p_u8(rtype), _p_i64(qoff), _p_i64(toff),
+                          pool.ctypes.data_as(_CP),
+                          _p_u8(ops), _p_i64(lens), _p_i64(off))
+    if rc != 0:
+        raise NativeParseError(f"malformed PAF at line {rc}", rc)
+    qnames, tnames = _names(pool.tobytes(), qoff, toff, n)
+    return ints, flags, rtype, qnames, tnames, ops, lens, off
+
+
+def parse_paf_bytes_raw(data: bytes, validate_cigars: bool = False):
+    """Parse PAF text without parsing cigars (the reference's
+    read_pafs(parse_cigar=0)): each cg tag stays a byte range of ``data``.
+
+    ``validate_cigars`` applies the full parser's cigar acceptance rule and
+    returns "noncanon" when a cigar length has a leading zero (valid input
+    the full parser would canonicalize, so the caller parses fully).
+
+    Returns (ints[n,13], flags[n], type[n], qnames, tnames, cg_start[n],
+    cg_len[n]) or "noncanon".
+    """
+    lib = get_lib()
+    T = _default_threads(None) if len(data) >= _PARSE_MT_BYTES else 1
+    bounds = np.zeros(T + 1, dtype=np.int64)
+    recs, names_c, lines = (np.zeros(T, dtype=np.int64) for _ in range(3))
+    rc = lib.paf_scan_raw_mt(data, len(data), T, _p_i64(bounds),
+                             _p_i64(recs), _p_i64(names_c), _p_i64(lines))
+    if rc != 0:
+        raise NativeParseError(f"malformed PAF at line {rc}", rc)
+    rec_base = np.zeros(T, dtype=np.int64)
+    name_base = np.zeros(T, dtype=np.int64)
+    np.cumsum(recs[:-1], out=rec_base[1:])
+    np.cumsum(names_c[:-1], out=name_base[1:])
+    n, nb = int(recs.sum()), int(names_c.sum())
+    ints = np.empty((n, 13), dtype=np.int64)
+    flags = np.empty(n, dtype=np.uint8)
+    rtype = np.empty(n, dtype=np.uint8)
+    qoff = np.empty(n, dtype=np.int64)
+    toff = np.empty(n, dtype=np.int64)
+    pool = np.empty(max(nb, 1), dtype=np.uint8)
+    cg_start = np.empty(n, dtype=np.int64)
+    cg_len = np.empty(n, dtype=np.int64)
+    noncanon = np.zeros(1, dtype=np.int64)
+    rc = lib.paf_fill_raw_mt(data, len(data), T, _p_i64(bounds),
+                             _p_i64(rec_base), _p_i64(name_base),
+                             _p_i64(lines), _p_i64(ints), _p_u8(flags),
+                             _p_u8(rtype), _p_i64(qoff), _p_i64(toff),
+                             pool.ctypes.data_as(_CP),
+                             _p_i64(cg_start), _p_i64(cg_len),
+                             1 if validate_cigars else 0, _p_i64(noncanon))
+    if rc != 0:
+        raise NativeParseError(f"malformed PAF at line {rc}", rc)
+    if validate_cigars and noncanon[0]:
+        return "noncanon"
+    qnames, tnames = _names(pool.tobytes(), qoff, toff, n)
+    return ints, flags, rtype, qnames, tnames, cg_start, cg_len
+
+
+def _name_pool(qnames, tnames):
+    """NUL-separated name pool and per-record offsets for the formatters.
+    Each distinct name is encoded once, and runs of equal consecutive
+    names share one dictionary probe."""
+    pool_off: dict[str, int] = {}
+    parts = []
+    pos = 0
+
+    def off_of(name: str) -> int:
+        nonlocal pos
+        o = pool_off.get(name)
+        if o is None:
+            enc = name.encode("latin-1")
+            pool_off[name] = o = pos
+            parts.append(enc)
+            pos += len(enc) + 1
+        return o
+
+    def offsets(names) -> np.ndarray:
+        n = len(names)
+        if n == 0:
+            return np.empty(0, dtype=np.int64)
+        change = np.empty(n, dtype=bool)
+        change[0] = True
+        np.not_equal(names[1:], names[:-1], out=change[1:])
+        idx = np.flatnonzero(change)
+        vals = np.fromiter((off_of(names[i]) for i in idx),
+                           dtype=np.int64, count=len(idx))
+        return np.repeat(vals, np.diff(np.append(idx, n)))
+
+    qoff = offsets(qnames)
+    toff = offsets(tnames)
+    return b"\0".join(parts) + b"\0", qoff, toff
+
+
+def pack_ints13(cols, n_threads: int | None = None):
+    """Interleave 13 equal-length int64 columns into a row-major [n,13]
+    matrix."""
+    lib = get_lib()
+    cols = [_i64(c) for c in cols]
+    out = np.empty((len(cols[0]), 13), dtype=np.int64)
+    ptrs = (_I64P * 13)(*[c.ctypes.data_as(_I64P) for c in cols])
+    lib.pack_ints13(len(cols[0]), ctypes.cast(ptrs, ctypes.POINTER(_I64P)),
+                    _p_i64(out), _default_threads(n_threads))
+    return out
+
+
+def cigar_stats(n_records: int, ops, lens, off) -> np.ndarray:
+    """Per-record stats [n,7] in one C pass (columns: matches, mismatches,
+    query_inserts, query_deletes, query_insert_bases, query_delete_bases,
+    M-only bases)."""
+    lib = get_lib()
+    out = np.empty((n_records, 7), dtype=np.int64)
+    lib.cigar_stats(n_records, _p_u8(_u8(ops)), _p_i64(_i64(lens)),
+                    _p_i64(_i64(off)), _p_i64(out))
+    return out
+
+
+def cigar_stats_raw(t) -> np.ndarray:
+    """``cigar_stats`` tokenized straight from a raw-cigar table's cg
+    text."""
+    lib = get_lib()
+    raw_buf, cg_start, cg_len = t.raw_cg
+    out = np.empty((len(cg_start), 7), dtype=np.int64)
+    lib.cigar_stats_raw(len(cg_start), raw_buf, _p_i64(_i64(cg_start)),
+                        _p_i64(_i64(cg_len)), _p_i64(out),
+                        _default_threads(None))
+    return out
+
+
+def paf_check_batch(t):
+    """(first_bad_record, code) of the paf_check sweep (-1, -1 when every
+    record passes).  Codes index core/pafio's message table; raw-cigar tables skip
+    the cigar-span checks, as the reference does for unparsed cigars."""
+    lib = get_lib()
+    has_cigar = t.has_cigar
+    if t.raw_cg is not None:
+        has_cigar = np.zeros(len(t.qstart), dtype=bool)
+    code = np.zeros(1, dtype=np.int64)
+    bad = lib.paf_check_batch(
+        len(t.qstart), _p_i64(_i64(t.off)), _p_u8(_u8(t.ops)),
+        _p_i64(_i64(t.lens)), _p_i64(_i64(t.qstart)), _p_i64(_i64(t.qend)),
+        _p_i64(_i64(t.qlen)), _p_i64(_i64(t.tstart)), _p_i64(_i64(t.tend)),
+        _p_i64(_i64(t.tlen)), _p_u8(_u8(has_cigar)), _p_i64(code))
+    return int(bad), int(code[0])
+
+
+def copy_op_ranges(keep_a, keep_b, new_off, ops, lens,
+                   n_threads: int | None = None):
+    """Compact per-record op ranges [keep_a, keep_b) into a fresh CSR
+    (``new_off`` already cumsummed); (new_ops, new_lens)."""
+    lib = get_lib()
+    total = int(new_off[-1]) if len(new_off) else 0
+    new_ops = np.empty(total, dtype=np.uint8)
+    new_lens = np.empty(total, dtype=np.int64)
+    lib.copy_op_ranges(len(keep_a), _p_i64(_i64(keep_a)),
+                       _p_i64(_i64(keep_b)), _p_i64(_i64(new_off)),
+                       _p_u8(_u8(ops)), _p_i64(_i64(lens)), _p_u8(new_ops),
+                       _p_i64(new_lens), _default_threads(n_threads))
+    return new_ops, new_lens
+
+
+def build_mop_batch(n_records: int, ops, lens, off, strand, qstart, qend,
+                    tstart, qpool_off, tpool_off, n_mops: int,
+                    outs: dict) -> int:
+    """Fill the MColumnBatch arrays (ops/segments.build_m_column_batch) in
+    ``outs`` (preallocated mlens/recs/qpos0/tpos0/rev/col_off/rec_col_off/
+    flat_idx); returns n_cols."""
+    lib = get_lib()
+    return int(lib.build_mop_batch(
+        n_records, _p_u8(_u8(ops)), _p_i64(_i64(lens)), _p_i64(_i64(off)),
+        _p_u8(_u8(strand)), _p_i64(_i64(qstart)), _p_i64(_i64(qend)),
+        _p_i64(_i64(tstart)), _p_i64(_i64(qpool_off)),
+        _p_i64(_i64(tpool_off)),
+        _p_i64(outs["mlens"]), _p_i64(outs["recs"]), _p_i64(outs["qpos0"]),
+        _p_i64(outs["tpos0"]), _p_u8(outs["rev"]), _p_i64(outs["col_off"]),
+        _p_i64(outs["rec_col_off"]), _p_i64(outs["flat_idx"])))
+
+
+def view_stats_lines(qnames, tnames, vals: np.ndarray) -> bytes:
+    """The per-record stat lines of ``paffy view``.  ``vals`` is int64
+    [n,12]: qstart qend tstart tend strand score matches mismatches
+    query_inserts query_deletes query_insert_bases query_delete_bases."""
+    lib = get_lib()
+    n = len(qnames)
+    pool, qoff, toff = _name_pool(qnames, tnames)
+    out = np.empty(n * 430 + len(pool), dtype=np.uint8)
+    written = lib.view_stats_lines(n, _p_i64(qoff), _p_i64(toff), pool,
+                                   _p_i64(_i64(vals)), out.ctypes.data_as(_CP))
+    return out[: int(written)].tobytes()
+
+
+def view_render_batch(t, pool, stat_blob: bytes | None):
+    """``view -a`` output: each record's stat line (sliced from
+    ``stat_blob``, the view_stats_lines output; None emits renders only)
+    followed by its 3-row alignment rendering in 150-column windows
+    (paf_pretty_print2, impl/paf.c:282-314), as a uint8 array."""
+    lib = get_lib()
+    n = len(t)
+    qpo, tpo, qsl, tsl = (np.empty(n, dtype=np.int64) for _ in range(4))
+    g = pool._guard
+    for i in range(n):
+        o, ln = pool.index[t.qname[i]]
+        qpo[i], qsl[i] = o + g, ln
+        o, ln = pool.index[t.tname[i]]
+        tpo[i], tsl[i] = o + g, ln
+    if stat_blob is not None:
+        nl = np.flatnonzero(np.frombuffer(stat_blob, dtype=np.uint8)
+                            == ord("\n"))
+        stat_off = np.concatenate([[0], nl + 1]).astype(np.int64)
+        stat_len = np.diff(stat_off)
+    else:
+        stat_off = np.zeros(n + 1, dtype=np.int64)
+        stat_len = np.zeros(n, dtype=np.int64)
+    off, lens = _i64(t.off), _i64(t.lens)
+    cs = np.concatenate([[0], np.cumsum(lens)])
+    ncols = cs[off[1:]] - cs[off[:-1]]
+    sizes = stat_len + 3 * ncols + 3 * ((ncols + 149) // 150)
+    out_off = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int64)
+    out = np.empty(int(out_off[-1]), dtype=np.uint8)
+    lib.view_render_batch(
+        n, _p_i64(off), _p_u8(_u8(t.ops)), _p_i64(lens),
+        _p_i64(_i64(t.qstart)), _p_i64(_i64(t.qend)),
+        _p_i64(_i64(t.tstart)), _p_u8(_u8(t.strand)),
+        _p_u8(pool.host_pool), _p_i64(qpo), _p_i64(tpo), _p_i64(qsl),
+        _p_i64(tsl), stat_blob, _p_i64(stat_off), _p_i64(out_off),
+        out.ctypes.data_as(_CP), _default_threads(None))
+    return out
+
+
+def _fasta_scan(lib, data: bytes):
+    n_rec, seq_b, name_b = _LL(), _LL(), _LL()
+    lib.fasta_scan(data, len(data), ctypes.byref(n_rec), ctypes.byref(seq_b),
+                   ctypes.byref(name_b))
+    return n_rec.value, seq_b.value, name_b.value
+
+
+def fasta_headers(data: bytes):
+    """[(name, sequence length)] of a FASTA file's records in file order,
+    without building a pool."""
+    lib = get_lib()
+    n, _, nb = _fasta_scan(lib, data)
+    name_pool = np.empty(max(nb, 1), dtype=np.uint8)
+    name_off = np.empty(max(n, 1), dtype=np.int64)
+    seq_len = np.empty(max(n, 1), dtype=np.int64)
+    lib.fasta_fill_headers(data, len(data), name_pool.ctypes.data_as(_CP),
+                           _p_i64(name_off), _p_i64(seq_len))
+    raw = name_pool.tobytes()
+    return [(raw[name_off[i]: raw.index(b"\0", name_off[i])].decode("latin-1"),
+             int(seq_len[i])) for i in range(n)]
+
+
+def fasta_pack_bytes(data: bytes):
+    """(pool: uint8 array, [(name, offset, length)] in file order) of a
+    FASTA file in two native passes: trimmed
+    sequence-line spans, right-stripped headers, content before the first
+    header skipped (paffy_tpu's read_fasta semantics)."""
+    lib = get_lib()
+    n, sb, nb = _fasta_scan(lib, data)
+    name_pool = np.empty(max(nb, 1), dtype=np.uint8)
+    name_off, seq_off, seq_len = (np.empty(n, dtype=np.int64)
+                                  for _ in range(3))
+    pool = np.empty(sb, dtype=np.uint8)
+    lib.fasta_fill(data, len(data), name_pool.ctypes.data_as(_CP),
+                   _p_i64(name_off), _p_i64(seq_off), _p_i64(seq_len),
+                   _p_u8(pool))
+    raw = name_pool.tobytes()
+    return pool, [(raw[name_off[i]: raw.index(b"\0", name_off[i])]
+                   .decode("latin-1"), int(seq_off[i]), int(seq_len[i]))
+                  for i in range(n)]
+
+
+def column_compare_counts(pool: np.ndarray, lens, qpos0, tpos0, rev, rec,
+                          n_records: int):
+    """(matches, mismatches) per record from the single-threaded C column
+    loop over the M runs given (positions into the guarded host pool)."""
+    lib = get_lib()
+    m = np.zeros(n_records, dtype=np.int64)
+    x = np.zeros(n_records, dtype=np.int64)
+    lib.column_compare_counts(
+        _p_u8(_u8(pool)), len(lens), _p_i64(_i64(lens)), _p_i64(_i64(qpos0)),
+        _p_i64(_i64(tpos0)), _p_u8(_u8(rev)), _p_i64(_i64(rec)), _p_i64(m),
+        _p_i64(x))
+    return m, x
+
+
+def synth_query_pool(pool: np.ndarray, lens, qpos0, tpos0, rev,
+                     keep_per_mille: int = 965, seed: int = 7) -> None:
+    """Write query bytes into ``pool`` in place through the alignment map:
+    the (complemented, for reverse runs) target byte, substituted at a
+    deterministic per-column rate of (1000 - keep_per_mille) / 1000."""
+    lib = get_lib()
+    if pool.dtype != np.uint8 or not pool.flags.c_contiguous:
+        raise ValueError("pool must be a contiguous uint8 array")
+    lib.synth_query_pool(_p_u8(pool), len(lens), _p_i64(_i64(lens)),
+                         _p_i64(_i64(qpos0)), _p_i64(_i64(tpos0)),
+                         _p_u8(_u8(rev)), keep_per_mille, seed)

@@ -2,20 +2,24 @@
 ``build_piece_batch`` :112, ``_piece_match_counts`` :230,
 ``_reduce_to_records`` :252, ``pallas_match_counts`` :267).
 
-Host side, ``build_piece_table`` splits each M run of a column batch into
-pieces of at most ``PIECE_COLS`` columns and writes, per piece, the
-ascending source offsets of its query and target bytes in the extended
-pool ``ext`` (ops/mismatch_device.py), its column count and its record.
-Device side, ``piece_match_counts`` adds each piece's equal byte pairs to
-its record's total: one CUDA kernel (csrc/piece_compare.cu) on a CUDA
-tensor, the plain PyTorch version on a CPU tensor.
+Host side, ``build_piece_table`` cuts each M run of a column batch into
+pieces and writes, per piece, the ascending source offsets of its query and
+target bytes in the extended pool ``ext`` (ops/mismatch_device.py), its
+column count and its record.  Device side, ``piece_match_counts`` adds each
+piece's equal byte pairs to its record's total: one CUDA kernel
+(csrc/piece_compare.cu) on a CUDA tensor, the plain PyTorch version on a
+CPU tensor.
 
-Piece length: 1024 columns, four column steps of the kernel's 256 threads.
-A piece bounds the work a block does per table entry, so a record that is
-one long M run is spread over many blocks instead of one; shorter pieces
-would only add table bytes (32 per piece), since runs are already split at
-every indel.  The TPU kernel's 4096 was one vector register of bytes, which
-has no meaning here.
+The kernel walks a piece in windows of ``WINDOW`` = 512 target bytes, the
+32 aligned 16-byte words a warp loads in one step, so the table needs no
+entry per window: a piece is a whole M run, cut only every ``PIECE_COLS``
+= 4096 columns to bound the work one warp takes on (a warp takes 32
+consecutive pieces).  Every piece after a run's first starts on a
+4096-byte boundary counted from the run's first aligned target word, so
+it starts 16-aligned and fills its windows; a run whose target starts at
+offset a mod 16 has ceil((n + a) / 4096) pieces.  The TPU kernel's
+4096-column pieces were one vector register of bytes; here the cut only
+balances the warps.
 
 All offsets are int64: unlike the TPU kernel (``2L < 2**31``,
 pallas_compare.py:146), pools of any size stay on the device.
@@ -28,11 +32,9 @@ import torch
 
 from paffy_tpu_torch import kernels
 
-PIECE_COLS = 1024
-# pieces per CUDA block: each block flushes its warps' counts with one
-# atomicAdd per warp per record it touches, so a block covers up to
-# 32 x 1024 columns to keep those atomics few
-PIECES_PER_BLOCK = 32
+WORD = 16                      # bytes a lane loads at once
+WINDOW = 32 * WORD             # target bytes a warp covers in one step
+PIECE_COLS = 8 * WINDOW        # longest piece: a run is cut every 4096 columns
 
 
 def build_piece_table(lens, qpos0, tpos0, rev, rec, pool_len: int,
@@ -54,22 +56,24 @@ def build_piece_table(lens, qpos0, tpos0, rev, rec, pool_len: int,
     rec = np.asarray(rec, dtype=np.int64)
     if lens.size and lens.min() < 0:
         raise ValueError("negative M run length")
-    nsub = -(-lens // PIECE_COLS)          # a zero-length run has no piece
+    head = tpos0 % WORD           # columns of the first word before the run
+    # a zero-length run has no piece
+    nsub = np.where(lens > 0, -(-(lens + head) // PIECE_COLS), 0)
     off = np.zeros(len(lens) + 1, dtype=np.int64)
     np.cumsum(nsub, out=off[1:])
     total = int(off[-1])
     mop = np.repeat(np.arange(len(lens)), nsub)
-    c0 = (np.arange(total, dtype=np.int64) - off[mop]) * PIECE_COLS
-    n = np.minimum(lens[mop] - c0, PIECE_COLS)
-    r = rev[mop]
+    k = np.arange(total, dtype=np.int64) - off[mop]
+    c0 = np.maximum(k * PIECE_COLS - head[mop], 0)
+    n = np.minimum((k + 1) * PIECE_COLS - head[mop], lens[mop]) - c0
     L = np.int64(pool_len)
     table = np.empty((4, total), dtype=np.int64)
-    table[0] = np.where(r, 2 * L - 1 - (qpos0[mop] - c0), qpos0[mop] + c0)
+    table[0] = np.where(rev, 2 * L - 1 - qpos0, qpos0)[mop] + c0
     table[1] = tpos0[mop] + c0
     table[2] = n
     table[3] = rec[mop]
     if total:
-        q_lo = np.where(r, L, 0)
+        q_lo = np.where(rev[mop], L, 0)
         if (np.any(table[0] < q_lo) or np.any(table[0] + n > q_lo + L)
                 or table[1].min() < 0 or np.max(table[1] + n) > L):
             raise ValueError(f"an M run reads outside the sequence pool "
@@ -99,10 +103,13 @@ def piece_match_counts(ext: torch.Tensor, table: torch.Tensor,
                        n_records: int) -> torch.Tensor:
     """int64 [n_records] match counts over the pieces of ``table`` (from
     ``build_piece_table`` for this ``ext``); the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
-    if ext.dtype != torch.uint8 or ext.dim() != 1:
-        raise ValueError(f"ext must be a 1-D uint8 tensor, got {ext.dtype} "
-                         f"of shape {tuple(ext.shape)}")
+    tensors, the plain version for CPU tensors.  ``ext``'s length must be a
+    multiple of 16 (the kernel reads it in aligned 16-byte words; a
+    SequencePool's is, see ops/segments.py)."""
+    if ext.dtype != torch.uint8 or ext.dim() != 1 or ext.numel() % WORD:
+        raise ValueError(f"ext must be a 1-D uint8 tensor whose length is a "
+                         f"multiple of {WORD}, got {ext.dtype} of shape "
+                         f"{tuple(ext.shape)}")
     if (table.dtype != torch.int64 or table.dim() != 2
             or table.shape[0] != 4):
         raise ValueError(f"table must be int64 [4, n_pieces], got "
@@ -112,13 +119,18 @@ def piece_match_counts(ext: torch.Tensor, table: torch.Tensor,
     if ext.device.type == "cpu":
         return piece_match_counts_plain(ext, table, n_records)
     kernels.check_device(ext.device)
+    if n_records >= 2**31:
+        raise ValueError(f"{n_records} records: the kernel's record index is "
+                         f"int32")
     ext, table = ext.contiguous(), table.contiguous()
+    if ext.data_ptr() % WORD:
+        raise ValueError(f"ext must start on a {WORD}-byte boundary")
     match = torch.zeros(n_records, dtype=torch.int64, device=ext.device)
     n_pieces = table.shape[1]
     if n_pieces == 0:
         return match
     rc = kernels.load().paffy_piece_counts(
-        ext.data_ptr(), table.data_ptr(), n_pieces, PIECES_PER_BLOCK,
+        ext.data_ptr(), ext.numel(), table.data_ptr(), n_pieces,
         match.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "piece_compare")
     kernels.LAUNCHES["piece_compare"] += 1

@@ -1,11 +1,11 @@
-"""The sequence pool on the device and per-record column counts
-(counterpart of paffy_tpu/ops/mismatch.py: ``SequencePool`` :55,
-``column_match_counts`` :274).
+"""The sequence pool and per-record column counts (counterpart of
+paffy_tpu/ops/mismatch.py: ``SequencePool`` :55, ``column_match_counts``
+:274; ``first_missing_seq`` is paffy_tpu/commands/simple.py:246).
 
-``SequencePool`` subclasses paffy_tpu's to reuse its host pool, guards,
-name index and ``offsets_for``; on the device it holds only ``ext`` (K2's
-output, a torch tensor), and the base class's JAX properties ``pool``,
-``packed`` and ``packed2`` are closed off.
+``SequencePool`` keeps the FASTA bytes in one guarded host array with a
+name index; on the device it holds only ``ext`` (K2's output, a torch
+tensor).  ``from_arrays`` builds it over given bytes and index, which is how
+the tests hand paffy_tpu's pool across as numpy arrays.
 
 ``column_match_counts`` always runs the piece compare on the pool's device
 (K1): there is no host route and no size threshold here, because the
@@ -18,32 +18,99 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paffy_tpu.core.model import PafTable
-from paffy_tpu.ops import mismatch as _ref
-from paffy_tpu.ops.segments import build_m_column_batch
 from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch.core.fasta import fasta_pool_from_bytes, pack_sequences
+from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.ops.compare import build_piece_table, piece_match_counts
 from paffy_tpu_torch.ops.mismatch_device import build_ext_pool
+from paffy_tpu_torch.ops.segments import (POOL_GUARD, POOL_W,
+                                          build_m_column_batch)
 
 
-class SequencePool(_ref.SequencePool):
+class SequencePool:
     """Guarded FASTA pool: bytes and name index on the host, ``ext`` on
-    ``device`` (resolved by ``devconf.device`` when the pool is made)."""
+    ``device`` (resolved by ``devconf.device`` when the pool is made).
 
-    def _init_from_pool(self, pool_np, index):
-        super()._init_from_pool(pool_np, index)
+    The host pool carries POOL_GUARD zero bytes before the sequences and at
+    least POOL_GUARD after them, and its length is a multiple of POOL_W;
+    every offset includes the front guard.
+    """
+
+    def __init__(self, seqs: dict[str, str]):
+        self._init_from_pool(*pack_sequences(seqs))
+
+    @classmethod
+    def from_arrays(cls, pool_bytes: np.ndarray,
+                    index: dict[str, tuple[int, int]]) -> "SequencePool":
+        """The pool over ``pool_bytes`` (the sequences concatenated, no
+        guards) and ``index`` {name: (offset, length)} into it."""
+        self = cls.__new__(cls)
+        self._init_from_pool(np.asarray(pool_bytes, dtype=np.uint8),
+                             dict(index))
+        return self
+
+    @classmethod
+    def from_fasta_files(cls, paths) -> "SequencePool":
+        """The pool straight from FASTA file bytes (native pack)."""
+        datas = []
+        for p in paths:
+            with open(p, "rb") as fh:
+                datas.append(fh.read())
+        return cls.from_arrays(*fasta_pool_from_bytes(datas))
+
+    def _init_from_pool(self, pool_np: np.ndarray, index) -> None:
+        self.index = index
+        n = POOL_GUARD + len(pool_np)
+        padded = -(-(n + POOL_GUARD + 2 * POOL_W) // POOL_W) * POOL_W
+        buf = np.zeros(padded, dtype=np.uint8)
+        buf[POOL_GUARD: n] = pool_np
+        self._guard = POOL_GUARD
+        self._data_len = len(pool_np)
+        self._pool_np = buf
         self.device = devconf.device()
         self._ext_t = None
 
-    @classmethod
-    def from_reference(cls, ref: _ref.SequencePool) -> "SequencePool":
-        """The port's pool over the same bytes and index as a paffy_tpu
-        pool, without reading the FASTA again."""
-        self = cls.__new__(cls)
-        g = ref._guard
-        self._init_from_pool(ref.host_pool[g: g + ref._data_len],
-                             dict(ref.index))
-        return self
+    @property
+    def pool_len(self) -> int:
+        """Length L of the guarded pool (ext has 2L bytes)."""
+        return len(self._pool_np)
+
+    @property
+    def host_pool(self) -> np.ndarray:
+        """The guarded pool on the host (for the native C passes)."""
+        return self._pool_np
+
+    def seq_bytes(self, name: str) -> np.ndarray:
+        """One sequence's bytes as a host uint8 view into the pool."""
+        off, ln = self.index[name]
+        g = self._guard
+        return self._pool_np[g + off: g + off + ln]
+
+    def offsets_for(self, names: np.ndarray, role: str) -> np.ndarray:
+        """Guarded pool offset of each named sequence; KeyError with the
+        reference's message for a missing one."""
+        out = np.empty(len(names), dtype=np.int64)
+        for i, n in enumerate(names):
+            entry = self.index.get(n)
+            if entry is None:
+                raise KeyError(f"No {role} sequence named: {n} found")
+            out[i] = entry[0] + self._guard
+        return out
+
+    def first_missing_seq(self, t: PafTable):
+        """(record, role, name) of the first record whose query (checked
+        first, the reference's fetch order) or target sequence is not in
+        the pool; (-1, None, None) when all resolve.  One dictionary probe
+        per distinct name."""
+        known: dict = {}
+        for i in range(len(t)):
+            for role, name in (("query", t.qname[i]), ("target", t.tname[i])):
+                ok = known.get(name)
+                if ok is None:
+                    ok = known[name] = name in self.index
+                if not ok:
+                    return i, role, name
+        return -1, None, None
 
     @property
     def ext(self) -> torch.Tensor:
@@ -57,15 +124,6 @@ class SequencePool(_ref.SequencePool):
                 self._ext_t = build_ext_pool(raw)
             del raw
         return self._ext_t
-
-    def _jax_only(self, *_):
-        raise AttributeError("paffy_tpu_torch.SequencePool holds only ext on "
-                             "the device; pool/packed/packed2 are JAX arrays "
-                             "of paffy_tpu")
-
-    pool = property(_jax_only)
-    packed = property(_jax_only)
-    packed2 = property(_jax_only)
 
 
 def column_match_counts(t: PafTable, pool: SequencePool

@@ -6,6 +6,9 @@ Inputs are made from a seed with numpy and handed to both packages; the
 port runs its plain PyTorch versions (PAFFY_TPU_PLATFORM=cpu).  Counts are
 integers: exact equality everywhere."""
 
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +20,11 @@ from paffy_tpu.ops.segments import build_m_column_batch
 from paffy_tpu_torch import kernels
 from paffy_tpu_torch.ops import compare
 from paffy_tpu_torch.ops import mismatch as port_mm
+from paffy_tpu_torch.ops import mismatch_device as port_md
 from synthdata import make_workload
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+import chip_smoke  # noqa: E402
 
 P = compare.PIECE_COLS
 IUPAC = b"ACGTNMKRYVBHDWS"
@@ -67,9 +74,15 @@ def jax_tiled_counts(t, pool):
         return ref_mm.column_match_counts(t, pool)
 
 
+def port_pool(ref_pool):
+    """The port's pool over the bytes and index of a paffy_tpu pool."""
+    g = ref_pool._guard
+    return port_mm.SequencePool.from_arrays(
+        ref_pool.host_pool[g: g + ref_pool._data_len], ref_pool.index)
+
+
 def port_counts(t, ref_pool):
-    return port_mm.column_match_counts(
-        t, port_mm.SequencePool.from_reference(ref_pool))
+    return port_mm.column_match_counts(t, port_pool(ref_pool))
 
 
 def assert_counts_equal(a, b):
@@ -154,28 +167,143 @@ def test_piece_edges_empty_and_m_free_records(alphabet):
     assert got[0][-3:].tolist() == [0, 0, 0] == got[1][-3:].tolist()
 
 
+def reference_pieces(lens, qpos0, tpos0, rev, rec, L):
+    """The piece table on Python integers, one (qsrc, tsrc, n, rec) per
+    piece: a run is cut where its target position reaches a PIECE_COLS-byte
+    boundary counted from the run's first aligned 16-byte target word."""
+    out = []
+    for ln, q, t, r, k in zip(lens, qpos0, tpos0, rev, rec):
+        ln, q, t = int(ln), int(q), int(t)
+        head = t % 16
+        cuts = ([0] + [c for c in range(1, ln) if (c + head) % P == 0]
+                + [ln] if ln else [])
+        for c0, c1 in zip(cuts, cuts[1:]):
+            qs = 2 * L - 1 - (q - c0) if r else q + c0
+            out.append((qs, t + c0, c1 - c0, int(k)))
+    return out
+
+
 def test_piece_table_int64_offsets_past_2_31():
     # offsets and pool lengths beyond int32: no pool is allocated, the table
     # is held against the same arithmetic on Python integers
-    L = 5 * 2**31 + 17
+    L = 5 * 2**31 + 16 * 1000
     lens = np.array([1, P - 1, P, P + 1, 2 * P + 5, 0], dtype=np.int64)
     qpos0 = np.array([2**31 + 3, 2**32 + 9, L - 1, 2**31 + P + 1,
                       2**33 - 1, 2**31], dtype=np.int64)
-    tpos0 = np.array([2**32, 5, 2**31 - 1, L - P - 1, 2**33, 2**32],
+    tpos0 = np.array([2**32, 5, 2**31 - 1, L - P - 1, 2**33 + 7, 2**32],
                      dtype=np.int64)
     rev = np.array([False, True, True, False, True, False])
     rec = np.array([0, 0, 1, 2, 2, 3], dtype=np.int64)
     table = compare.build_piece_table(lens, qpos0, tpos0, rev, rec, L, 4)
-    want = []
-    for j in range(len(lens)):
-        for c0 in range(0, int(lens[j]), P):
-            n = min(int(lens[j]) - c0, P)
-            qs = (2 * L - 1 - (int(qpos0[j]) - c0) if rev[j]
-                  else int(qpos0[j]) + c0)
-            want.append((qs, int(tpos0[j]) + c0, n, int(rec[j])))
+    want = reference_pieces(lens, qpos0, tpos0, rev, rec, L)
     assert table.dtype == np.int64 and table.shape == (4, len(want))
     assert [tuple(int(v) for v in col) for col in table.T] == want
     assert table[0].max() > 2**33
+    # every piece's target bytes lie in the PIECE_COLS bytes from its first
+    # aligned word
+    t_word = table[1] - table[1] % 16
+    assert np.all(table[1] + table[2] <= t_word + P)
+
+
+@pytest.mark.parametrize("ln", [1, 15, 16, 17, 511, 512, 513, 1100, P - 1,
+                                P, P + 1, 9000])
+def test_piece_table_cuts_at_every_residue(ln):
+    # target and query starts at every residue mod 16, both strands
+    L = 1 << 16
+    head = np.arange(32) % 16
+    tpos0 = 4096 + 16 * np.arange(32) * 40 + head
+    rev = np.arange(32) >= 16
+    qpos0 = np.where(rev, 30000 + ln + 3 * head, 9000 + 5 * head)
+    rec = np.arange(32) // 4
+    lens = np.full(32, ln)
+    table = compare.build_piece_table(lens, qpos0, tpos0, rev, rec, L, 8)
+    assert ([tuple(int(v) for v in col) for col in table.T]
+            == reference_pieces(lens, qpos0, tpos0, rev, rec, L))
+    # a piece after a run's first starts 16-aligned
+    first = np.r_[True, np.diff(np.repeat(np.arange(32), -(-(ln + head)
+                                                         // P))) != 0]
+    assert np.all(table[1][~first] % 16 == 0)
+
+
+def residue_table_and_pool(diff_parity):
+    """Records of one M run of 1, 15, 16, 17, 511, 512 or 513 columns on
+    both strands, whose target starts take every residue mod 16 and whose
+    query starts take every residue mod 16, with the query-target offset
+    odd (``diff_parity`` 1) or even (0); then an empty record and records
+    without an M op."""
+    rng = np.random.default_rng(11 + diff_parity)
+    n = 1 << 14
+    letters = np.frombuffer(b"ACGT", dtype=np.uint8)
+    q = letters[rng.integers(0, 4, n)]
+    tt = q.copy()
+    flip = rng.random(n) < 0.2
+    tt[flip] = letters[rng.integers(0, 4, int(flip.sum()))]
+    q[rng.random(n) < 0.3] |= 0x20
+    seqs = {"q": q.tobytes().decode(), "t": tt.tobytes().decode()}
+    lines = []
+    for ln in (1, 15, 16, 17, 511, 512, 513):
+        for strand in "+-":
+            for r in range(16):
+                ts = 16 * int(rng.integers(0, (n - 600) // 16)) + r
+                qs = (16 * int(rng.integers(0, (n - 600) // 16))
+                      + (3 * r + 1 - diff_parity) % 16)
+                lines.append(f"q\t{n}\t{qs}\t{qs + ln}\t{strand}\tt\t{n}"
+                             f"\t{ts}\t{ts + ln}\t{ln}\t{ln}\t60"
+                             f"\tcg:Z:{ln}M")
+    lines.append(f"q\t{n}\t0\t10\t+\tt\t{n}\t0\t10\t10\t10\t60")
+    lines.append(f"q\t{n}\t0\t5\t+\tt\t{n}\t7\t7\t0\t5\t60\tcg:Z:5I")
+    lines.append(f"q\t{n}\t4\t4\t-\tt\t{n}\t7\t11\t0\t4\t60\tcg:Z:4D")
+    return parse_paf_text("\n".join(lines) + "\n"), ref_mm.SequencePool(seqs)
+
+
+@pytest.mark.parametrize("diff_parity", [1, 0], ids=["odd-offset",
+                                                     "even-offset"])
+def test_counts_at_every_residue_match_pallas_tiled_and_c_loop(diff_parity):
+    from paffy_tpu.ops.pallas_compare import pallas_match_counts
+    t, ref = residue_table_and_pool(diff_parity)
+    b = batch_of(t, ref)
+    k = b.n_mops
+    assert set((b.tpos0[:k] % 16).tolist()) == set(range(16))
+    assert set((b.qpos0[:k] % 16).tolist()) == set(range(16))
+    got = port_counts(t, ref)
+    assert_counts_equal(got, native_counts(t, ref))
+    assert_counts_equal(got, jax_tiled_counts(t, ref))
+    assert_counts_equal(got, pallas_match_counts(ref.pool, b, len(t),
+                                                 interpret=True))
+    assert got[0][-3:].tolist() == [0, 0, 0] == got[1][-3:].tolist()
+
+
+@pytest.mark.parametrize("label", chip_smoke.K1_EDGE_LABELS)
+def test_k1_edge_cases_match_c_loop(label):
+    # chip_smoke.py's K1 edge cases (every residue mod 16 of target and
+    # query starts, reverse runs that read the last byte of ext, records
+    # without runs), which it and tests/test_torch_cuda_kernels.py run
+    # through the kernel on the card
+    c = chip_smoke.k1_edge_cases()[label]
+    table = compare.build_piece_table(c["lens"], c["qpos0"], c["tpos0"],
+                                      c["rev"], c["rec"], len(c["pool"]),
+                                      c["n_records"])
+    ext = port_md.build_ext_pool(torch.from_numpy(c["pool"]))
+    got = compare.piece_match_counts(ext, torch.from_numpy(table),
+                                     c["n_records"])
+    m, _ = native.column_compare_counts(c["pool"], c["lens"], c["qpos0"],
+                                        c["tpos0"], c["rev"], c["rec"],
+                                        c["n_records"])
+    np.testing.assert_array_equal(got.numpy(), m)
+    if label == "both ends of ext":
+        assert (table[0] + table[2]).max() == 2 * len(c["pool"])
+        assert (table[1] + table[2]).max() == len(c["pool"])
+    else:
+        assert set((c["tpos0"] % 16).tolist()) == set(range(16))
+        assert (c["n_records"] - len(np.unique(c["rec"]))) > 2
+
+
+def test_piece_wrapper_rejects_unaligned_ext_length():
+    table = torch.from_numpy(compare.build_piece_table(
+        [4], [0], [0], [False], [0], 8, 1))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        compare.piece_match_counts(torch.zeros(24, dtype=torch.uint8),
+                                   table, 1)
 
 
 @pytest.mark.parametrize("field,value", [("qpos0", -1), ("tpos0", 10**6),
@@ -192,7 +320,7 @@ def test_piece_table_rejects_reads_outside_the_pool(field, value):
 def test_piece_wrapper_on_cpu_runs_plain_without_launching():
     rng = np.random.default_rng(2)
     ext = torch.from_numpy(rng.integers(0, 4, 10_000, dtype=np.uint8))
-    lens = rng.integers(0, 3 * P, 40)
+    lens = rng.integers(0, 3 * compare.WINDOW, 40)
     table = compare.build_piece_table(
         lens, rng.integers(0, 1000, 40), rng.integers(0, 1000, 40),
         np.zeros(40, dtype=bool), np.sort(rng.integers(0, 9, 40)), 5000, 9)

@@ -1,0 +1,326 @@
+"""The port's own host layer (paffy_tpu_torch.native, core, ops.segments,
+ops.transforms, ops.mismatch's pool, commands.common) against paffy_tpu's,
+on the same seeded inputs: equal arrays, equal bytes.  Also chip_smoke.py's
+synthesis at a small scale through both packages' native libraries.
+
+Run as a script, this file prints the digests that chip_smoke.py pins
+(chromosome scale, a few minutes and ~3 GB of memory):
+
+    PAFFY_TPU_PLATFORM=cpu python tests/test_torch_host.py --pins
+"""
+
+import dataclasses
+import hashlib
+import os
+import pathlib
+import sys
+
+import numpy as np
+import pytest
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from paffy_tpu import native as ref_native  # noqa: E402
+from paffy_tpu.cli import paffy_main as ref_main  # noqa: E402
+from paffy_tpu.core import pafio as ref_pafio  # noqa: E402
+from paffy_tpu.ops import mismatch as ref_mm  # noqa: E402
+from paffy_tpu.ops import segments as ref_segments  # noqa: E402
+from paffy_tpu.ops import transforms as ref_transforms  # noqa: E402
+from paffy_tpu_torch import native  # noqa: E402
+from paffy_tpu_torch.cli import paffy_main as port_main  # noqa: E402
+from paffy_tpu_torch.core import pafio  # noqa: E402
+from paffy_tpu_torch.ops import mismatch as port_mm  # noqa: E402
+from paffy_tpu_torch.ops import segments, transforms  # noqa: E402
+from synthdata import make_workload  # noqa: E402
+
+import chip_smoke  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def cpu_platform(monkeypatch):
+    monkeypatch.setenv("PAFFY_TPU_PLATFORM", "cpu")
+
+
+def workload_text(seed):
+    _, lines = make_workload(seed=seed, length=6000, n_windows=12,
+                             window=900, step=400)
+    return "\n".join(lines) + "\n"
+
+
+TAGGED = ("a\t100\t0\t10\t+\tb\t90\t5\t15\t8\t10\t60\ttp:A:S\tAS:i:-4\t"
+          "tl:i:2\tcn:i:7\ts1:i:99\tzz:Z:dropped\tcg:Z:3M1I2M1D4M\n"
+          "b\t90\t2\t6\t-\ta\t100\t0\t4\t4\t4\t0\tcg:Z:4M\n"
+          "c\t9\t0\t9\t+\tc\t9\t0\t9\t9\t9\t255\n"
+          "a\t100\t1\t4\t+\tb\t90\t1\t4\t3\t3\t1\tcg:Z:03M\n")
+PAF_INPUTS = {
+    "workload": (workload_text(3).encode(), {}),
+    "tags": (TAGGED.encode(), {}),
+    "raw": (workload_text(4).encode(), dict(parse_cigars=False)),
+    "raw-validated-noncanon": (TAGGED.encode(),
+                               dict(parse_cigars=False, validate_cigars=True)),
+}
+
+
+def assert_tables_equal(a, b):
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if f.name == "raw_cg":
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert x[0] == y[0]
+                np.testing.assert_array_equal(x[1], y[1])
+                np.testing.assert_array_equal(x[2], y[2])
+            continue
+        assert x.dtype == y.dtype, f.name
+        np.testing.assert_array_equal(x, y, err_msg=f.name)
+
+
+@pytest.mark.parametrize("name", list(PAF_INPUTS))
+def test_paf_table_fields_after_parse(name):
+    data, kw = PAF_INPUTS[name]
+    assert_tables_equal(pafio.parse_paf_data(data, **kw),
+                        ref_pafio.parse_paf_data(data, **kw))
+
+
+@pytest.mark.parametrize("bad", [
+    "q\t10\t0\t5\t*\tt\t10\t0\t5\t5\t5\t60\n",
+    "q\t10\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:5Q\n",
+    "q\t10\t0\t5\t+\tt\t10\n",
+], ids=["strand", "cigar", "fields"])
+def test_parse_errors_carry_the_same_line(bad):
+    data = (workload_text(5) + bad).encode()
+    with pytest.raises(ValueError) as want:
+        ref_pafio.parse_paf_data(data)
+    with pytest.raises(pafio.PafFormatError) as got:
+        pafio.parse_paf_data(data)
+    assert got.value.line_no == want.value.line_no
+
+
+def test_native_build_failure_raises(monkeypatch, tmp_path):
+    # no second, numpy path: a host library that does not build is an error
+    class Failed:
+        returncode, stdout, stderr = 1, "", "cc1plus: fatal error"
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "library_path",
+                        lambda: tmp_path / "libpaffy_io_x.so")
+    monkeypatch.setattr(native.subprocess, "run", lambda *a, **k: Failed())
+    with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+        pafio.parse_paf_data(TAGGED.encode())
+
+
+def test_take_and_record_ops():
+    data = workload_text(7).encode()
+    t, r = pafio.parse_paf_data(data), ref_pafio.parse_paf_data(data)
+    for idx in (np.array([5, 0, 3, 3]), np.arange(len(t)) % 3 == 1,
+                np.ones(len(t), dtype=bool)):
+        assert_tables_equal(t.take(idx), r.take(idx))
+
+
+CHECK_CASES = {
+    "clean": TAGGED.replace("03M", "3M"),
+    "qstart": "q\t10\t-1\t5\t+\tt\t10\t0\t5\t5\t5\t60\n",
+    "tend": "q\t10\t0\t5\t+\tt\t4\t0\t5\t5\t5\t60\tcg:Z:5M\n",
+    "qspan": "q\t10\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:4M\n",
+    "tspan": "q\t10\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:5M1D\n",
+}
+
+
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+def test_paf_check(case):
+    text = workload_text(8) + CHECK_CASES[case]
+    t, r = pafio.parse_paf_text(text), ref_pafio.parse_paf_text(text)
+    try:
+        ref_pafio.paf_check(r)
+        want = None
+    except ref_pafio.PafCheckError as e:
+        want = (str(e), e.record_index)
+    try:
+        pafio.paf_check(t)
+        got = None
+    except pafio.PafCheckError as e:
+        got = (str(e), e.record_index)
+    assert got == want
+    assert (want is None) == (case == "clean")
+
+
+FASTAS = {
+    "wrapped-lowercase": ">s1 desc\nACGTacgt\nNNNN\n>s2\nGGGG\n\n>s3\n",
+    "duplicates-whitespace": "junk\n>a  \nAC GT\n>b\nTT\n>a\nCCCC  \n",
+    "iupac": ">x\nACGTNMKRYVBHDWSX\n>y\nacgtnmkryvbhdwsx\n",
+}
+
+
+@pytest.mark.parametrize("name", list(FASTAS))
+def test_fasta_pool_bytes_and_index(name, tmp_path):
+    paths = []
+    for k in range(2):
+        p = tmp_path / f"{k}.fa"
+        p.write_bytes((FASTAS[name] if k == 0 else ">z\nTTAA\n").encode())
+        paths.append(str(p))
+    want = ref_mm.SequencePool.from_fasta_files(paths)
+    got = port_mm.SequencePool.from_fasta_files(paths)
+    assert got.index == want.index and got.pool_len == want.pool_len
+    np.testing.assert_array_equal(got.host_pool, want.host_pool)
+    assert got.offsets_for(np.array(list(want.index), dtype=object),
+                           "query").tolist() == want.offsets_for(
+        np.array(list(want.index), dtype=object), "query").tolist()
+    data = pathlib.Path(paths[0]).read_bytes()
+    assert native.fasta_headers(data) == ref_native.fasta_headers(data)
+
+
+def pools_and_table(seed):
+    seqs, lines = make_workload(seed=seed, length=7000, n_windows=10,
+                                window=900, step=500)
+    t = pafio.parse_paf_text("\n".join(lines) + "\n")
+    ref = ref_mm.SequencePool(seqs)
+    g = ref._guard
+    port = port_mm.SequencePool.from_arrays(ref.host_pool[g: g + ref._data_len],
+                                            ref.index)
+    return t, ref_pafio.parse_paf_text("\n".join(lines) + "\n"), port, ref
+
+
+def test_build_m_column_batch_arrays():
+    t, r, port, ref = pools_and_table(9)
+    want = ref_segments.build_m_column_batch(
+        r, ref.offsets_for(r.qname, "query"), ref.offsets_for(r.tname, "target"))
+    got = segments.build_m_column_batch(
+        t, port.offsets_for(t.qname, "query"),
+        port.offsets_for(t.tname, "target"))
+    for f in dataclasses.fields(want):
+        x, y = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(y, np.ndarray):
+            assert x.dtype == y.dtype, f.name
+            np.testing.assert_array_equal(x, y, err_msg=f.name)
+        else:
+            assert x == y, f.name
+
+
+@pytest.mark.parametrize("mode", ["parsed", "raw"])
+def test_stats_calc_with_m(mode):
+    data = (workload_text(10) + TAGGED.replace("03M", "3M")).encode()
+    kw = dict(parse_cigars=False) if mode == "raw" else {}
+    want = ref_transforms.stats_calc_with_m(ref_pafio.parse_paf_data(data, **kw))
+    t = pafio.parse_paf_data(data, **kw)
+    got = transforms.stats_calc_with_m(t)
+    assert list(got[0]) == list(want[0])
+    for k in want[0]:
+        np.testing.assert_array_equal(got[0][k], want[0][k], err_msg=k)
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_view_stats_lines_bytes(seed):
+    rng = np.random.default_rng(seed)
+    n = 50
+    names = np.array([f"chr{k}" for k in rng.integers(0, 4, n)], dtype=object)
+    vals = rng.integers(0, 10**9, (n, 12))
+    vals[: n // 5, 6:8] = 0       # 0/0 identities print -nan
+    got = native.view_stats_lines(names, names[::-1].copy(), vals)
+    assert got == ref_native.view_stats_lines(names, names[::-1].copy(), vals)
+    assert got.count(b"\n") == n and b"-nan" in got
+
+
+@pytest.mark.parametrize("seed", [13, 14])
+def test_column_compare_counts(seed):
+    t, r, port, ref = pools_and_table(seed)
+    b = segments.build_m_column_batch(
+        t, port.offsets_for(t.qname, "query"),
+        port.offsets_for(t.tname, "target"))
+    k = b.n_mops
+    args = (b.lens[:k], b.qpos0[:k], b.tpos0[:k], b.rev[:k], b.rec[:k],
+            len(t))
+    got = native.column_compare_counts(port.host_pool, *args)
+    want = ref_native.column_compare_counts(ref.host_pool, *args)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+def test_pack_ints13_and_copy_op_ranges():
+    rng = np.random.default_rng(15)
+    cols = [rng.integers(-5, 10**12, 77) for _ in range(13)]
+    np.testing.assert_array_equal(native.pack_ints13(cols),
+                                  ref_native.pack_ints13(cols))
+    ops = rng.integers(0, 5, 300).astype(np.uint8)
+    lens = rng.integers(1, 99, 300)
+    a = np.sort(rng.integers(0, 300, 20))
+    bnd = np.minimum(a + rng.integers(0, 30, 20), 300)
+    off = np.concatenate([[0], np.cumsum(bnd - a)])
+    for x, y in zip(native.copy_op_ranges(a, bnd, off, ops, lens),
+                    ref_native.copy_op_ranges(a, bnd, off, ops, lens)):
+        np.testing.assert_array_equal(x, y)
+
+
+def test_first_missing_seq_matches_paffy_tpu():
+    from paffy_tpu.commands.simple import _first_missing_seq
+    t, r, port, ref = pools_and_table(16)
+    rows = np.arange(len(t))
+    for qn, tn, at in (("zz", None, 3), (None, "yy", 5), (None, None, -1)):
+        tq, rq = t.take(rows), r.take(rows)
+        if at >= 0:
+            for tab in (tq, rq):
+                tab.qname = tab.qname.copy()
+                tab.tname = tab.tname.copy()
+                if qn:
+                    tab.qname[at] = qn
+                if tn:
+                    tab.tname[at] = tn
+        assert port.first_missing_seq(tq) == _first_missing_seq(ref, rq)
+
+
+def smoke_files(d, ref: bool, **sizes):
+    """chip_smoke.py's synthesis through paffy_tpu's native library (ref)
+    or the port's."""
+    os.makedirs(d, exist_ok=True)
+    return chip_smoke.build_files(str(d), ref_native if ref else native,
+                                  **sizes)
+
+
+SMALL = dict(seq_len=400_000, n_records=12, m_columns=300_000)
+
+
+def test_smoke_synthesis_byte_equal_and_view(tmp_path):
+    fa_r, paf_r, _ = smoke_files(tmp_path / "ref", True, **SMALL)
+    fa_p, paf_p, w = smoke_files(tmp_path / "port", False, **SMALL)
+    for a, b in ((fa_r, fa_p), (paf_r, paf_p)):
+        assert pathlib.Path(a).read_bytes() == pathlib.Path(b).read_bytes()
+    assert int(w["runs"].sum()) >= SMALL["m_columns"]
+    for flags in (["-s"], ["-s", "-t"]):
+        outs = []
+        for main, tag in ((ref_main, "ref"), (port_main, "port")):
+            o = tmp_path / f"{tag}.txt"
+            assert main(["view", "-i", paf_p, *flags, "-o", str(o), fa_p]) == 0
+            outs.append(o.read_bytes())
+        assert outs[0] == outs[1]
+
+
+def make_pins(d) -> dict:
+    """The digests chip_smoke.py pins: its chromosome-scale synthesis
+    through paffy_tpu's native library, and paffy_tpu's view -s and
+    view -s -t on those files (its host route)."""
+    os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
+    fa, paf, _ = smoke_files(d, True)
+    pins = {"seqs.fa": chip_smoke.sha256_file(fa),
+            "in.paf": chip_smoke.sha256_file(paf)}
+    for tag, flags in (("view -s", ["-s"]), ("view -s -t", ["-s", "-t"])):
+        out = os.path.join(d, "out.txt")
+        assert ref_main(["view", "-i", paf, *flags, "-o", out, fa]) == 0
+        pins[tag] = chip_smoke.sha256_file(out)
+        print(tag, open(out, "rb").read().splitlines()[-1].decode())
+    return pins
+
+
+def test_pins_are_digests():
+    assert set(chip_smoke.PINS) == {"seqs.fa", "in.paf", "view -s",
+                                    "view -s -t"}
+    for v in chip_smoke.PINS.values():
+        assert len(v) == 64 and int(v, 16) >= 0
+    assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()
+
+
+if __name__ == "__main__" and "--pins" in sys.argv:
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for k, v in make_pins(tmp).items():
+            print(f'    "{k}": "{v}",')

@@ -1,11 +1,13 @@
-"""paffy_tpu_torch imports no JAX: an AST scan of every file of the port (and
-of chip_smoke.py and bin/paffy-torch), following the paffy_tpu modules they
-import through those modules' import-time statements, plus one run of the
-port's view in a fresh interpreter that must end with no ``jax`` loaded."""
+"""paffy_tpu_torch stands alone: an AST scan of every file of the port (and
+of chip_smoke.py and bin/paffy-torch) finds no import of JAX or of
+paffy_tpu, in any body, and no string that runs a paffy_tpu module in a
+subprocess; and one run of the port's view in a fresh interpreter ends
+with neither ``jax`` nor any ``paffy_tpu`` module loaded."""
 
 import ast
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -15,9 +17,16 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "paffy_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "bin" / "paffy-torch"]
 
+# a command string that runs paffy_tpu: python -c "from paffy_tpu...",
+# python -m paffy_tpu..., or one of its launchers as a program path
+_RUNS_PAFFY_TPU = re.compile(
+    r"(?:\bimport\s+|\bfrom\s+|-m\s+)paffy_tpu\b(?!_torch)"
+    r"|^(?:\S*/)?bin/(?:paffy|faffy|paffy-py)(?:\s|$)")
+_PAFFY_TPU_MODULE = re.compile(r"paffy_tpu(?:\.\w+)*")
 
-def _imports(path: pathlib.Path, import_time_only: bool) -> set[str]:
-    """Module names a file imports; with ``import_time_only``, only the
+
+def _imports(source: str, import_time_only: bool = False) -> set[str]:
+    """Module names a source imports; with ``import_time_only``, only the
     statements that run when it is imported (function bodies skipped)."""
     found: set[str] = set()
 
@@ -32,60 +41,94 @@ def _imports(path: pathlib.Path, import_time_only: bool) -> set[str]:
             found.update(f"{node.module}.{a.name}" for a in node.names)
         for child in ast.iter_child_nodes(node):
             visit(child)
-    visit(ast.parse(path.read_text(), str(path)))
+    visit(ast.parse(source))
     return found
 
 
-def _module_file(name: str):
-    base = REPO.joinpath(*name.split("."))
-    for cand in (base.with_suffix(".py"), base / "__init__.py"):
-        if cand.is_file():
-            return cand
-    return None
-
-
-def _forbidden(name: str) -> bool:
+def _is_jax(name: str) -> bool:
     return (name in ("jax", "jaxlib", "paffy_tpu.jaxconf")
             or name.startswith(("jax.", "jaxlib.")))
 
 
-def _reached_paffy_tpu(path: pathlib.Path) -> dict[str, set[str]]:
-    """paffy_tpu modules reached from ``path`` -> what each imports at
-    import time (packages' __init__ included)."""
-    todo = [n for n in _imports(path, import_time_only=False)
-            if n == "paffy_tpu" or n.startswith("paffy_tpu.")]
-    seen: dict[str, set[str]] = {}
-    while todo:
-        name = todo.pop()
-        parts = name.split(".")
-        for i in range(1, len(parts) + 1):
-            mod = ".".join(parts[:i])
-            f = _module_file(mod)
-            if mod in seen or f is None:
-                continue
-            seen[mod] = _imports(f, import_time_only=True)
-            todo.extend(n for n in seen[mod]
-                        if n == "paffy_tpu" or n.startswith("paffy_tpu."))
-    return seen
+def _is_paffy_tpu(name: str) -> bool:
+    return name == "paffy_tpu" or name.startswith("paffy_tpu.")
+
+
+def _command_strings(source: str) -> list[str]:
+    """String constants of a source that could name a command: every one
+    but the docstrings."""
+    tree = ast.parse(source)
+    docs = {id(n.body[0].value) for n in ast.walk(tree)
+            if isinstance(n, (ast.Module, ast.FunctionDef,
+                              ast.AsyncFunctionDef, ast.ClassDef))
+            and n.body and isinstance(n.body[0], ast.Expr)
+            and isinstance(n.body[0].value, ast.Constant)}
+    return [n.value for n in ast.walk(tree)
+            if isinstance(n, ast.Constant) and isinstance(n.value, str)
+            and id(n) not in docs]
+
+
+def _dash_m_modules(source: str) -> list[str]:
+    """The string after each "-m" in a list or tuple of strings (the
+    module a ``python -m`` argument list runs)."""
+    out = []
+    for n in ast.walk(ast.parse(source)):
+        if isinstance(n, (ast.List, ast.Tuple)):
+            for a, b in zip(n.elts, n.elts[1:]):
+                if (isinstance(a, ast.Constant) and a.value == "-m"
+                        and isinstance(b, ast.Constant)
+                        and isinstance(b.value, str)):
+                    out.append(b.value)
+    return out
+
+
+def _violations(source: str) -> list[str]:
+    bad = sorted(n for n in _imports(source)
+                 if _is_jax(n) or _is_paffy_tpu(n))
+    bad += [s for s in _command_strings(source) if _RUNS_PAFFY_TPU.search(s)]
+    bad += [s for s in _dash_m_modules(source)
+            if _PAFFY_TPU_MODULE.fullmatch(s)]
+    return bad
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_file_reaches_no_jax(path):
-    direct = {n for n in _imports(path, import_time_only=False)
-              if _forbidden(n)}
-    assert not direct, f"{path.name} imports {sorted(direct)}"
-    for mod, names in _reached_paffy_tpu(path).items():
-        bad = sorted(n for n in names if _forbidden(n))
-        assert not bad, f"{path.name} reaches {mod}, which imports {bad}"
+    bad = _violations(path.read_text())
+    assert not bad, f"{path.name} imports or runs {bad}"
+
+
+@pytest.mark.parametrize("source", [
+    "def f():\n    from paffy_tpu import native\n",
+    "def f():\n    import paffy_tpu.core.pafio as p\n",
+    "import jax.numpy as jnp\n",
+    'REF = "import sys; from paffy_tpu.cli import paffy_main"\n',
+    'subprocess.run([sys.executable, "-m", "paffy_tpu.cli", "view"])\n',
+    'subprocess.run(["python", "-m paffy_tpu.cli"])\n',
+    'subprocess.run([os.path.join(REPO, "bin/paffy"), "view"])\n',
+], ids=["import-in-body", "import-as", "jax", "command-string", "dash-m-arg",
+        "dash-m-string", "launcher"])
+def test_the_scan_sees_paffy_tpu_and_jax(source):
+    assert _violations(source)
+
+
+@pytest.mark.parametrize("source", [
+    '"""Counterpart of paffy_tpu/ops/segments.py; from paffy_tpu import."""\n',
+    "from paffy_tpu_torch import native\n",
+    'subprocess.run(["bin/paffy-torch", "view"])\n',
+    'sys.stderr.write(f"{cmd}: not ported; bin/paffy runs it on paffy_tpu")\n',
+], ids=["docstring", "port-import", "port-launcher", "message"])
+def test_the_scan_passes_the_port(source):
+    assert not _violations(source)
 
 
 def test_the_scan_sees_jax_modules():
     # the scan flags a paffy_tpu module that imports JAX at import time
-    tiled = REPO / "paffy_tpu" / "ops" / "tiled.py"
-    assert any(_forbidden(n) for n in _imports(tiled, import_time_only=True))
-    mm = REPO / "paffy_tpu" / "ops" / "mismatch.py"
-    assert not any(_forbidden(n) for n in _imports(mm, import_time_only=True))
+    tiled = (REPO / "paffy_tpu" / "ops" / "tiled.py").read_text()
+    assert any(_is_jax(n) for n in _imports(tiled, import_time_only=True))
+    mm = (REPO / "paffy_tpu" / "ops" / "mismatch.py").read_text()
+    assert not any(_is_jax(n) for n in _imports(mm, import_time_only=True))
+    assert any(_is_paffy_tpu(n) for n in _imports(mm))
 
 
 def test_port_view_runs_without_loading_jax(tmp_path):
@@ -96,6 +139,9 @@ def test_port_view_runs_without_loading_jax(tmp_path):
             "from paffy_tpu_torch.cli import paffy_main\n"
             "rc = paffy_main(sys.argv[1:])\n"
             "assert 'jax' not in sys.modules, 'jax was imported'\n"
+            "ref = [m for m in sys.modules if m == 'paffy_tpu'\n"
+            "       or m.startswith('paffy_tpu.')]\n"
+            "assert not ref, f'paffy_tpu modules were imported: {ref}'\n"
             "sys.exit(rc)\n")
     env = dict(os.environ, PAFFY_TPU_PLATFORM="cpu")
     r = subprocess.run(
@@ -104,3 +150,20 @@ def test_port_view_runs_without_loading_jax(tmp_path):
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("Total-alignments:1\t")
+
+
+def test_port_launcher_runs_without_paffy_tpu(tmp_path):
+    (tmp_path / "s.fa").write_text(">q\nACGTACGTAC\n>t\nACGTTCGTAC\n")
+    (tmp_path / "in.paf").write_text(
+        "q\t10\t0\t10\t+\tt\t10\t0\t10\t10\t10\t60\tcg:Z:10M\n")
+    env = dict(os.environ, PAFFY_TPU_PLATFORM="cpu",
+               PYTHONVERBOSE="1")
+    r = subprocess.run(
+        [sys.executable, str(REPO / "bin" / "paffy-torch"), "view", "-i",
+         str(tmp_path / "in.paf"), "-s", "-t", str(tmp_path / "s.fa")],
+        cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.startswith("Total-alignments:1\t")
+    loaded = re.findall(r"^import '((?:paffy_tpu|jax)(?:\.[\w.]+)?)'",
+                        r.stderr, re.M)
+    assert not loaded, loaded
