@@ -1,39 +1,58 @@
 #!/usr/bin/env python3
-"""Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s`` at
-chromosome scale through the port's CUDA kernels.
+"""Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s``,
+``paffy add_mismatches`` and ``paffy tile`` at chromosome scale through the
+port's CUDA kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build   -- nvcc builds csrc/*.cu for sm_90a (its -Xptxas -v lines are
-              printed) and g++ the port's native host library.
+1. build   -- nvcc builds csrc/*.cu for sm_90a, one nvcc per source, all
+              at once (their -Xptxas -v lines are printed), and g++ the
+              port's native host library.
 2. synth   -- a seeded workload at the scale of a human-chimp chr10 pair:
               two 135 Mbp sequences (soft-masked, with runs of N), 208 PAF
               records, 1.25e8 M columns in runs of median ~420 columns split
               by 1-8 bp indels, 30% '-' strand; written as FASTA and PAF to
               a temporary directory.  Their SHA-256 digests must equal the
               pinned ones (PINS).
-3. view    -- the port's ``view -s`` (the main path, launch counts reset
-              before it) and ``view -s -t`` on cuda:0.  The digests of their
-              outputs must equal the pinned digests of paffy_tpu's ``view``
-              on the same files (its host C route), and the aggregate line
-              must agree with the synthesized alignment.
+3. view    -- the port's ``view -s`` (launch counts reset before it) and
+              ``view -s -t`` on cuda:0.  The digests of their outputs must
+              equal the pinned digests of paffy_tpu's ``view`` on the same
+              files (its host C route), and the aggregate line must agree
+              with the synthesized alignment.
 4. counts  -- the port's per-record counts against the single-threaded C
               loop (native.column_compare_counts) over independently built
               run arrays; K1 and K2 against their plain PyTorch versions on
               the card at full size, and K1 against its plain version and
-              the C loop on its edge cases (k1_edge_cases).  Exact equality:
-              integer and byte outputs.
-5. timing  -- K1 and K2 and their plain versions with CUDA events (median
+              the C loop on its edge cases (k1_edge_cases).
+5. add_mismatches -- the port's ``add_mismatches`` (launch counts reset
+              before it) on the same files, then ``add_mismatches -a`` on
+              its output (a host path); both digests must equal the pinned
+              digests of paffy_tpu's output (its host C route).
+6. runs    -- K4 (count and fill) at full size and on its edge cases
+              (k4_edge_cases) against its plain versions on the card and
+              the C passes native.encode_runs_per_mop and
+              native.encode_runs_fill_cigar.
+7. tile    -- a tile input made from the encoded PAF (tile_input: each
+              record and three shifted copies, 832 records), pinned; the
+              port's ``tile`` on it (launch counts reset before it) must
+              equal the pinned digest of paffy_tpu's ``tile``; K5's levels
+              must equal its plain version on the card and the C sweep
+              native.tile_sweep, and span more than one level.
+8. timing  -- every kernel and its plain version with CUDA events (median
               after warm-up), each beside its bound (the bytes it must move
-              over 3.35 TB/s), the port's view wall time split by phase,
-              peak device memory.  A kernel's ``ms`` is one call at a time
-              between two events, so it includes the host's launch work;
-              ``ms_20_in_a_row`` is the time per call of 20 calls between
-              two events, which hides that work behind the kernels.
+              over 3.35 TB/s), each command's wall time split by phase and
+              its peak device memory.  A kernel's ``ms`` is one call at a
+              time between two events, so it includes the host's launch
+              work; ``ms_20_in_a_row`` is the time per call of 20 calls
+              between two events, which hides that work behind the kernels.
+              K5 mutates its count arena: each timed call zeroes it first,
+              inside the timed window.  A command's peak device memory is
+              counted above the tensors this script already held.
 
-The line before the last is the kernels' JSON record; the last line is
+Integer and byte outputs are compared exactly.  The line before the last
+is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": N}}``.
 This script uses only paffy_tpu_torch, and imports no JAX.
 """
@@ -61,18 +80,30 @@ MEDIAN_RUN = 420
 REV_SHARE = 0.3
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 
-# SHA-256 of the seed-0 synthesis and of paffy_tpu's view output on it
-# (host C route); how they were made is in PERF.md
+# SHA-256 of the seed-0 synthesis, of paffy_tpu's view, add_mismatches and
+# add_mismatches -a output on it (host C routes), of tile_input made from
+# that add_mismatches output, and of paffy_tpu's tile on it; how they were
+# made is in PERF.md
 PINS = {
     "seqs.fa": "5e4d5d8787566cbba4677b110e206d3355fdabe151b45a21851ab56c9f6b9c80",
     "in.paf": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
     "view -s": "c530168cf5970932616ad3eee0f20e7184f6bf0e000ba2ccbac65e6a9c7da473",
     "view -s -t": "91d9b93f69992fcd06510a7276c7d1be03fd3cf71b0d6a5d7638b5b7e0c428eb",
+    "add_mismatches": "d637f3b61cf36c9e35548a81e3bec03353fadc91b0b70db89caf1340b8114fcb",
+    "add_mismatches -a": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
+    "tile.paf": "66f1524d0fd23042b3855f914d256ee309c45019ee833c1758fa604c788205f8",
+    "tile": "e6338aff2b2f86ffde6fc1ec79179640ab28feb310e12d79ed02310b60dbc798",
 }
 
 # the K1 edge cases, see k1_edge_cases
 K1_EDGE_LABELS = ("every residue, + strand", "every residue, - strand",
                   "both ends of ext")
+# the K4 edge cases, see k4_edge_cases
+K4_EDGE_LABELS = K1_EDGE_LABELS[:2] + ("placed flips, + strand",
+                                       "placed flips, - strand")
+# the tile input, see tile_input
+TILE_COPIES = 3
+TILE_SHIFT = 250_000
 
 
 def log(msg: str) -> None:
@@ -251,6 +282,82 @@ def k1_edge_cases(seed=SEED):
     return cases
 
 
+def k4_edge_cases(seed=SEED, residues=range(16)):
+    """K4's edge cases as M runs over small unguarded pools:
+    {label: dict(pool, lens, qpos0, tpos0, rev)}.
+
+    * every residue: k1_edge_cases' runs (1 to 9000 columns, every pair of
+      target and query residues mod 16) over its random pool, where about a
+      third of the columns flip the match state, so flips fall on, before
+      and after the 4096-column cuts and 512-byte window edges alike.
+    * placed flips: 9000-column runs at every pair of residues (of
+      ``residues``) whose query is the target's copy (its reverse
+      complement on the - strand), with one mismatching column at d in
+      {-1, 0, +1} (a run per d) from every window edge and cut: the columns
+      512 w - (target start mod 16) of the run, w >= 1.
+    """
+    cases = {k: {f: v for f, v in c.items() if f not in ("rec", "n_records")}
+             for k, c in k1_edge_cases(seed).items() if k in K4_EDGE_LABELS}
+    rng = np.random.default_rng(seed + 1)
+    n_cols = 9000
+    res = np.array(list(residues), dtype=np.int64)
+    t_res = np.repeat(res, len(res))
+    q_res = np.tile(res, len(res))
+    comp = dict(zip(b"ACGT", b"TGCA"))
+    comp_lut = np.arange(256, dtype=np.uint8)
+    for a, b in comp.items():
+        comp_lut[a] = b
+    for label, reverse in zip(K4_EDGE_LABELS[2:], (False, True)):
+        k = 3 * len(t_res)
+        stride = 16 * (-(-(n_cols + 32) // 16))
+        pool = np.frombuffer(b"ACGT", dtype=np.uint8)[
+            rng.integers(0, 4, stride * (k + 1))].copy()
+        tpos0 = np.tile(t_res, 3)            # the target: the first stride
+        d = np.repeat(np.array([-1, 0, 1]), len(t_res))
+        lens = np.full(k, n_cols, dtype=np.int64)
+        qpos0 = np.empty(k, dtype=np.int64)
+        for j in range(k):
+            q0 = stride * (j + 1) + np.tile(q_res, 3)[j]
+            tgt = pool[tpos0[j]: tpos0[j] + n_cols]
+            edges = np.arange(512, n_cols + 512, 512) - tpos0[j] % 16 + d[j]
+            edges = edges[(edges >= 0) & (edges < n_cols)]
+            qry = tgt.copy()
+            qry[edges] = np.where(qry[edges] == ord("A"), ord("C"), ord("A"))
+            if reverse:   # walked down from q0 + n - 1, complemented
+                pool[q0: q0 + n_cols] = comp_lut[qry][::-1]
+                qpos0[j] = q0 + n_cols - 1
+            else:
+                pool[q0: q0 + n_cols] = qry
+                qpos0[j] = q0
+        cases[label] = dict(pool=pool, lens=lens, qpos0=qpos0, tpos0=tpos0,
+                            rev=np.full(k, reverse))
+    return cases
+
+
+def tile_input(encoded: bytes, seed=SEED) -> bytes:
+    """The tile input made from add_mismatches' output: every record, then
+    TILE_COPIES copies of all of them, each copy's qstart and qend shifted
+    by one seeded offset in [-TILE_SHIFT, TILE_SHIFT], clamped to keep the
+    record inside [0, qlen), and every record's AS drawn anew from the
+    seed.  The copies overlap the originals on the query, so the levels
+    span more than one value."""
+    rng = np.random.default_rng(seed + 11)
+    lines = encoded.decode("latin-1").splitlines()
+    n = len(lines) * (TILE_COPIES + 1)
+    shift = rng.integers(-TILE_SHIFT, TILE_SHIFT + 1, n)
+    shift[: len(lines)] = 0
+    score = rng.integers(0, 10**6, n)
+    out = []
+    for r in range(n):
+        f = lines[r % len(lines)].split("\t")
+        qlen, qs, qe = int(f[1]), int(f[2]), int(f[3])
+        sh = min(max(int(shift[r]), -qs), qlen - qe)
+        f[2], f[3] = str(qs + sh), str(qe + sh)
+        f = [f"AS:i:{score[r]}" if x.startswith("AS:i:") else x for x in f]
+        out.append("\t".join(f) + "\n")
+    return "".join(out).encode("latin-1")
+
+
 # ------------------------------------------------------------------- helpers
 
 def gpu_line() -> str:
@@ -303,11 +410,61 @@ def expect_pin(what, path):
 
 # ---------------------------------------------------------------------- main
 
+def k4_check(torch, devconf, native, runs, mismatch_device, pool, lens,
+             qpos0, tpos0, rev):
+    """K4 on one set of M runs over a guarded or unguarded host ``pool``:
+    count and fill against their plain versions on the card and against
+    the C passes.  Returns (ext, table, counts, first_out, n_runs, max
+    abs error); raises on any difference."""
+    dev = devconf.device()
+    lens = np.asarray(lens, dtype=np.int64)
+    col_off = np.cumsum(lens) - lens
+    table_np, piece_off = runs.build_run_table(lens, qpos0, tpos0, rev,
+                                               col_off, len(pool))
+    ext = mismatch_device.build_ext_pool(devconf.upload(pool, dev))
+    table = devconf.upload(table_np, dev)
+    counts = runs.run_counts(ext, table)
+    counts_plain = runs.run_counts_plain(ext, table)
+    err = int((counts.long() - counts_plain.long()).abs().max()) \
+        if counts.numel() else 0
+    if not torch.equal(counts, counts_plain):
+        raise AssertionError("K4 count != its plain version")
+    per_piece = devconf.to_host_i64(counts)
+    cs = np.concatenate([[0], np.cumsum(per_piece)])
+    runs_per_mop = cs[piece_off[1:]] - cs[piece_off[:-1]]
+    if not np.array_equal(runs_per_mop, native.encode_runs_per_mop(
+            pool, lens, qpos0, tpos0, rev)):
+        raise AssertionError("K4 count != native.encode_runs_per_mop")
+    n_runs = int(cs[-1])
+    first_out = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+    starts, states = runs.run_fill(ext, table, first_out, n_runs)
+    starts_p, states_p = runs.run_fill_plain(ext, table, first_out, n_runs)
+    if n_runs:
+        err = max(err, int((starts - starts_p).abs().max()),
+                  int((states.int() - states_p.int()).abs().max()))
+    if not (torch.equal(starts, starts_p) and torch.equal(states, states_p)):
+        raise AssertionError("K4 fill != its plain version")
+    new_ops = np.empty(n_runs, dtype=np.uint8)
+    new_lens = np.empty(n_runs, dtype=np.int64)
+    native.encode_runs_fill_cigar(pool, lens, qpos0, tpos0, rev,
+                                  np.cumsum(runs_per_mop) - runs_per_mop,
+                                  new_ops, new_lens)
+    st = devconf.download(starts)
+    if not (np.array_equal(np.where(devconf.download(states) != 0, 3, 4),
+                           new_ops)
+            and np.array_equal(np.diff(st, append=np.int64(lens.sum())),
+                               new_lens)):
+        raise AssertionError("K4 fill != native.encode_runs_fill_cigar")
+    return ext, table, counts, first_out, n_runs, err
+
+
 def run(torch) -> dict:
     from paffy_tpu_torch import devconf, kernels, native, phases
     from paffy_tpu_torch.cli import paffy_main
     from paffy_tpu_torch.core import pafio
-    from paffy_tpu_torch.ops import compare, mismatch, mismatch_device
+    from paffy_tpu_torch.ops import (compare, mismatch, mismatch_device,
+                                     runs, tile, tile_device)
+    from paffy_tpu_torch.ops.coverage import SATURATION
     from paffy_tpu_torch.ops.segments import build_m_column_batch
 
     os.environ.pop("PAFFY_TPU_PLATFORM", None)
@@ -330,6 +487,33 @@ def run(torch) -> dict:
     native.get_lib()
     log(f"g++ {native.library_path().name} in {time.perf_counter() - t0:.1f} s")
 
+    walls, phase_split, launches, peaks = {}, {}, {}, {}
+
+    def drive(tag, argv, out):
+        """One command of the port, its launch counts set to 0 just before
+        and read just after; its output's digest must be the pinned one."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # this script's own tensors
+        kernels.reset_launch_counts()
+        phases.reset()
+        t0 = time.perf_counter()
+        rc = paffy_main([*argv, "-o", out])
+        torch.cuda.synchronize()
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = dict(kernels.LAUNCHES)
+        phase_split[tag] = dict(phases.SECONDS)
+        peaks[tag] = torch.cuda.max_memory_allocated() - held
+        expect_equal(f"port {tag} exit code", rc, 0)
+        expect_pin(tag, out)
+        log(f"launches during the port's {tag}: {launches[tag]}")
+
+    def launched(tag, names):
+        for k in names:
+            if launches[tag][k] <= 0:
+                raise AssertionError(f"kernel {k} was not launched by the "
+                                     f"port's {tag}")
+
     with tempfile.TemporaryDirectory(prefix="paffy_smoke_") as d:
         log("== synth")
         fa, paf, w = build_files(d, native)
@@ -337,22 +521,9 @@ def run(torch) -> dict:
         expect_pin("in.paf", paf)
 
         log("== view")
-        walls, phase_split = {}, {}
         for tag, flags in (("view -s", ["-s"]), ("view -s -t", ["-s", "-t"])):
             ours = os.path.join(d, "ours.txt")
-            if tag == "view -s":
-                torch.cuda.reset_peak_memory_stats()
-                kernels.reset_launch_counts()
-            phases.reset()
-            t0 = time.perf_counter()
-            rc = paffy_main(["view", "-i", paf, *flags, "-o", ours, fa])
-            walls[tag] = time.perf_counter() - t0
-            phase_split[tag] = dict(phases.SECONDS)
-            if tag == "view -s":
-                launches = dict(kernels.LAUNCHES)
-                peak = torch.cuda.max_memory_allocated()
-            expect_equal(f"port {tag} exit code", rc, 0)
-            expect_pin(tag, ours)
+            drive(tag, ["view", "-i", paf, *flags, fa], ours)
             with open(ours, "rb") as fh:
                 last = fh.read().decode().splitlines()[-1]
             log(f"{tag}: {last}")
@@ -366,11 +537,7 @@ def run(torch) -> dict:
                      w["n_del"])
         expect_equal("Aligned-bases == M columns",
                      int(fields["Aligned-bases"]), int(w["runs"].sum()))
-        for k, n in launches.items():
-            if n <= 0:
-                raise AssertionError(f"kernel {k} was not launched by the "
-                                     f"port's view -s")
-        log(f"launches during the port's view -s: {launches}")
+        launched("view -s", ("piece_compare", "build_ext"))
 
         log("== counts")
         pool = mismatch.SequencePool.from_fasta_files([fa])
@@ -429,6 +596,73 @@ def run(torch) -> dict:
                          torch.equal(got, plain) and np.array_equal(
                              devconf.to_host_i64(got), m_edge), True)
 
+        log("== add_mismatches")
+        am = os.path.join(d, "am.paf")
+        drive("add_mismatches", ["add_mismatches", "-i", paf, fa], am)
+        launched("add_mismatches", ("build_ext", "run_counts", "run_fill"))
+        drive("add_mismatches -a", ["add_mismatches", "-a", "-i", am],
+              os.path.join(d, "am_a.paf"))
+        with open(am, "rb") as fh:
+            encoded = fh.read()
+        log(f"add_mismatches wrote {len(encoded)} bytes")
+
+        log("== runs")
+        k = b.n_mops
+        _, table4, counts4, first_out4, n_runs, k4_err = k4_check(
+            torch, devconf, native, runs, mismatch_device, pool.host_pool,
+            b.lens[:k], b.qpos0[:k], b.tpos0[:k], b.rev[:k])
+        n_pieces4 = int(table4.shape[1])
+        log(f"ok: K4 count and fill == plain on the card == C passes at full "
+            f"size: {n_runs} runs over {n_cols} columns in {n_pieces4} "
+            f"pieces")
+        for label, c in k4_edge_cases().items():
+            *_, n_edge, err = k4_check(
+                torch, devconf, native, runs, mismatch_device, c["pool"],
+                c["lens"], c["qpos0"], c["tpos0"], c["rev"])
+            k4_err = max(k4_err, err)
+            log(f"ok: K4 count and fill == plain == C passes on its edge case "
+                f"{label} ({len(c['lens'])} runs, {n_edge} =/X runs)")
+
+        log("== tile")
+        tpaf = os.path.join(d, "tile.paf")
+        with open(tpaf, "wb") as fh:
+            fh.write(tile_input(encoded))
+        expect_pin("tile.paf", tpaf)
+        drive("tile", ["tile", "-i", tpaf], os.path.join(d, "tiled.paf"))
+        launched("tile", ("tile_sweep",))
+        with open(tpaf, "rb") as fh:
+            tt = pafio.parse_paf_data(fh.read())
+        order = tile.tile_sort_order(tt)
+        arena_off, run_off, istart, iend, total = tile.sweep_arguments(tt)
+        k5_args = [devconf.upload(a, dev) for a in
+                   (order, arena_off, run_off, istart, iend)]
+        arena = torch.zeros(total, dtype=torch.int16, device=dev)
+        lv = tile_device.tile_sweep(*k5_args, arena)
+        arena_p = torch.zeros_like(arena)
+        lv_p = tile_device.tile_sweep_plain(*k5_args, arena_p)
+        k5_err = int((lv - lv_p).abs().max())
+        expect_equal("K5 levels == plain on the card", torch.equal(lv, lv_p),
+                     True)
+        expect_equal("K5 counts == plain on the card",
+                     torch.equal(arena, arena_p), True)
+        del arena_p
+        arena_c = np.zeros(total, dtype=np.uint16)
+        lv_c = np.full(len(tt), 32767, dtype=np.int64)
+        native.tile_sweep(order, arena_off, run_off, istart, iend, arena_c,
+                          SATURATION, lv_c)
+        lv_h = devconf.to_host_i64(lv)
+        expect_equal("K5 levels == C sweep", np.array_equal(lv_h, lv_c),
+                     True)
+        expect_equal("K5 counts == C sweep", np.array_equal(
+            devconf.download(arena).view(np.uint16), arena_c), True)
+        levels_seen = np.unique(lv_h)
+        expect_equal("K5 levels span more than one value",
+                     len(levels_seen) > 1, True)
+        n_bases = int((iend - istart).sum())
+        n_iv = len(istart)
+        log(f"tile: {len(tt)} records, {n_iv} intervals, {n_bases} aligned "
+            f"bases, levels {levels_seen.tolist()}")
+
         log("== timing")
 
         def k1():
@@ -436,62 +670,98 @@ def run(torch) -> dict:
 
         def k2():
             return mismatch_device.build_ext_pool(raw)
-        k1_ms = cuda_ms(torch, k1, reps=20)
-        k2_ms = cuda_ms(torch, k2, reps=20)
-        k1_row_ms = cuda_ms(torch, k1, reps=7, batch=20)
-        k2_row_ms = cuda_ms(torch, k2, reps=7, batch=20)
-        k1_plain_ms = cuda_ms(torch, lambda: compare.piece_match_counts_plain(
-            ext, table, len(t)), reps=5, warm=1)
-        k2_plain_ms = cuda_ms(torch, lambda: mismatch_device.build_ext_pool_plain(
-            raw), reps=5, warm=1)
+
+        def k4c():
+            return runs.run_counts(ext, table4)
+
+        def k4f():
+            return runs.run_fill(ext, table4, first_out4, n_runs)
+
+        def k5():
+            arena.zero_()
+            return tile_device.tile_sweep(*k5_args, arena)
+
+        def k5_plain():
+            arena.zero_()
+            return tile_device.tile_sweep_plain(*k5_args, arena)
+        timed = {
+            "piece_compare": (k1, lambda: compare.piece_match_counts_plain(
+                ext, table, len(t))),
+            "build_ext": (k2, lambda: mismatch_device.build_ext_pool_plain(
+                raw)),
+            "run_counts": (k4c, lambda: runs.run_counts_plain(ext, table4)),
+            "run_fill": (k4f, lambda: runs.run_fill_plain(
+                ext, table4, first_out4, n_runs)),
+            "tile_sweep": (k5, k5_plain),
+        }
         # bytes each kernel must move: K1 reads 2 bytes of ext per column
         # and 32 bytes of table per piece and writes 8 bytes per record; K2
-        # reads the pool (L) and writes ext (2L)
-        k1_bytes = 2 * n_cols + table_np.nbytes + 8 * len(t)
-        k2_bytes = 3 * raw.numel()
-        k1_bound_ms = k1_bytes / HBM_BYTES_PER_S * 1e3
-        k2_bound_ms = k2_bytes / HBM_BYTES_PER_S * 1e3
-        log(f"20 calls in a row, per call: K1 {k1_row_ms:.4f} ms "
-            f"({k1_bound_ms / k1_row_ms:.1%} of bound), K2 {k2_row_ms:.4f} ms "
-            f"({k2_bound_ms / k2_row_ms:.1%} of bound)")
-        log(f"K1 piece_compare: {k1_ms:.4f} ms one call at a time "
-            f"(plain {k1_plain_ms:.4f} ms) "
-            f"over {n_cols} columns, {n_pieces} pieces: "
-            f"{n_cols / (k1_ms / 1e3) / 1e9:.2f} Gcol/s; {k1_bytes} bytes, "
-            f"bound {k1_bound_ms:.4f} ms at 3.35 TB/s = "
-            f"{k1_bound_ms / k1_ms:.1%} of bound")
-        log(f"K2 build_ext: {k2_ms:.4f} ms one call at a time "
-            f"(plain {k2_plain_ms:.4f} ms) over "
-            f"{raw.numel()} pool bytes (read L + write 2L = {k2_bytes} "
-            f"bytes), bound {k2_bound_ms:.4f} ms = "
-            f"{k2_bound_ms / k2_ms:.1%} of bound")
+        # reads the pool (L) and writes ext (2L); K4 count reads 2 bytes
+        # per column and 40 of table per piece and writes 4 per piece; the
+        # fill reads the same plus 8 bytes of first index per piece and
+        # writes 9 bytes per run; K5 reads and writes 2 bytes of count per
+        # aligned base, reads 16 bytes per interval and 8 per record
+        nbytes = {
+            "piece_compare": 2 * n_cols + table_np.nbytes + 8 * len(t),
+            "build_ext": 3 * raw.numel(),
+            "run_counts": (2 * n_cols + table4.numel() * 8
+                           + 4 * n_pieces4),
+            "run_fill": (2 * n_cols + table4.numel() * 8 + 8 * n_pieces4
+                         + 9 * n_runs),
+            "tile_sweep": 4 * n_bases + 16 * n_iv + 8 * len(tt),
+        }
+        slow = {"tile_sweep"}
+        ms, row_ms, plain_ms, bound_ms = {}, {}, {}, {}
+        for name, (fn, plain) in timed.items():
+            ms[name] = cuda_ms(torch, fn, reps=5 if name in slow else 20)
+            row_ms[name] = cuda_ms(torch, fn, reps=3 if name in slow else 7,
+                                   batch=20)
+            plain_ms[name] = cuda_ms(torch, plain,
+                                     reps=3 if name in slow else 5, warm=1)
+            bound_ms[name] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            log(f"{name}: {ms[name]:.4f} ms one call at a time "
+                f"({bound_ms[name] / ms[name]:.1%} of bound), "
+                f"{row_ms[name]:.4f} ms a call 20 in a row "
+                f"({bound_ms[name] / row_ms[name]:.1%}), plain "
+                f"{plain_ms[name]:.4f} ms; {nbytes[name]} bytes, bound "
+                f"{bound_ms[name]:.4f} ms at 3.35 TB/s")
+        log(f"K1 over {n_cols} columns, {n_pieces} pieces; K2 over "
+            f"{raw.numel()} pool bytes; K4 over {n_cols} columns, "
+            f"{n_pieces4} pieces, {n_runs} runs; K5 over {len(tt)} records, "
+            f"{n_iv} intervals, {n_bases} aligned bases (the arena's memset "
+            f"of {2 * total} bytes is inside K5's timed window)")
         for tag in walls:
             split = ", ".join(f"{k} {v:.4f}" for k, v in
                               phase_split[tag].items())
-            dev_s = sum(v for k, v in phase_split[tag].items()
-                        if k in ("pool upload", "K2", "upload", "kernel"))
-            log(f"port {tag}: {walls[tag]:.4f} s wall ({split}; phases "
-                f"holding device work {dev_s:.4f} s = "
-                f"{dev_s / walls[tag]:.1%} of wall); "
-                f"{n_cols / walls[tag] / 1e6:.1f} Mcol/s end to end")
-        log(f"peak device memory during the port's view -s: "
-            f"{peak / 2**20:.1f} MiB")
+            log(f"port {tag}: {walls[tag]:.4f} s wall ({split}); peak device "
+                f"memory {peaks[tag] / 2**20:.1f} MiB above what this script "
+                f"held before it")
+        log(f"view -s: {n_cols / walls['view -s'] / 1e6:.1f} Mcol/s end to "
+            f"end")
         log(gpu)
 
+    errs = {"piece_compare": k1_err, "build_ext": k2_err,
+            "run_counts": k4_err, "run_fill": k4_err, "tile_sweep": k5_err}
+    sources = {"piece_compare": "piece_compare.cu", "build_ext": "ext_pool.cu",
+               "run_counts": "encode_runs.cu", "run_fill": "encode_runs.cu",
+               "tile_sweep": "tile_sweep.cu"}
+    replaces = {"piece_compare": "paffy_tpu/ops/pallas_compare.py:161",
+                "build_ext": "paffy_tpu/ops/mismatch_device.py:47",
+                "run_counts": "paffy_tpu/ops/tiled.py:302",
+                "run_fill": "paffy_tpu/ops/tiled.py:307",
+                "tile_sweep": "paffy_tpu/ops/tile_device.py:23"}
+    path_of = {"piece_compare": "view -s", "build_ext": "view -s",
+               "run_counts": "add_mismatches", "run_fill": "add_mismatches",
+               "tile_sweep": "tile"}
     return {"kernels": [
-        {"name": "piece_compare", "route": "cuda",
-         "source": "paffy_tpu_torch/csrc/piece_compare.cu",
-         "replaces": "paffy_tpu/ops/pallas_compare.py:161",
-         "launches": launches["piece_compare"], "max_abs_err": k1_err,
-         "ms": k1_ms, "ms_20_in_a_row": k1_row_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound_ms, "bound_by": "bytes", "library_ms": None},
-        {"name": "build_ext", "route": "cuda",
-         "source": "paffy_tpu_torch/csrc/ext_pool.cu",
-         "replaces": "paffy_tpu/ops/mismatch_device.py:47",
-         "launches": launches["build_ext"], "max_abs_err": k2_err,
-         "ms": k2_ms, "ms_20_in_a_row": k2_row_ms, "plain_ms": k2_plain_ms,
-         "bound_ms": k2_bound_ms, "bound_by": "bytes", "library_ms": None},
-    ]}
+        {"name": name, "route": "cuda",
+         "source": f"paffy_tpu_torch/csrc/{sources[name]}",
+         "replaces": replaces[name],
+         "launches": launches[path_of[name]][name],
+         "max_abs_err": errs[name], "ms": ms[name],
+         "ms_20_in_a_row": row_ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bound_ms[name], "bound_by": "bytes", "library_ms": None}
+        for name in timed]}
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
 """``paffy-torch <cmd>``: the port's command line (counterpart of
-paffy_tpu/cli.py:41 ``paffy_main`` and :80 ``_run``).  Only ``view`` is
-ported; every other command exits 1 and says so."""
+paffy_tpu/cli.py:41 ``paffy_main`` and :80 ``_run``).  ``add_mismatches``,
+``tile`` and ``view`` are ported; every other command exits 1 and says
+so."""
 
 from __future__ import annotations
 
@@ -11,8 +12,16 @@ def _usage(fh=sys.stderr):
     fh.write("paffy-torch: paffy on PyTorch and CUDA\n\n")
     fh.write("usage: paffy-torch <command> [options]\n\n")
     fh.write("available commands:\n")
-    fh.write(f"    {'view':<24} Pretty print and extract stats about PAF "
-             "alignments\n\n")
+    for cmd, desc in _COMMANDS:
+        fh.write(f"    {cmd:<24} {desc}\n")
+    fh.write("\n")
+
+
+_COMMANDS = (
+    ("add_mismatches", "Replace Ms with =/Xs in PAF cigar string"),
+    ("tile", "Give alignments levels, from lowest (best) to highest (worse)"),
+    ("view", "Pretty print and extract stats about PAF alignments"),
+)
 
 
 def _run(m, rest) -> int:
@@ -35,9 +44,15 @@ def paffy_main(argv=None) -> int:
         _usage()
         return 0
     cmd, rest = argv[0], argv[1:]
-    if cmd == "view":
+    if cmd == "add_mismatches":
+        from paffy_tpu_torch.commands.simple import add_mismatches_main as m
+    elif cmd == "tile":
+        from paffy_tpu_torch.commands.chain_tile_bed import tile_main as m
+    elif cmd == "view":
         from paffy_tpu_torch.commands.view import main as m
-        return _run(m, rest)
-    sys.stderr.write(f"{cmd} is not ported to paffy_tpu_torch yet (only view "
-                     f"is); bin/paffy runs it on paffy_tpu\n")
-    return 1
+    else:
+        sys.stderr.write(f"{cmd} is not ported to paffy_tpu_torch yet (only "
+                         f"{', '.join(c for c, _ in _COMMANDS)} are); "
+                         f"bin/paffy runs it on paffy_tpu\n")
+        return 1
+    return _run(m, rest)

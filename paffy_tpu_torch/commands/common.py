@@ -1,6 +1,7 @@
 """Command plumbing of the port's commands (counterpart of
 paffy_tpu/commands/common.py: the argument parser, the stdio-granularity
-output writer and the streaming PAF reader).
+output writer, the streaming PAF reader, whole-table read and write, and
+the streaming read -> transform -> write loop).
 
 Flags and defaults are the reference's: -i/-o default to stdin/stdout, -l
 sets the log level.  Output goes through ``GlibcWriter``, which reproduces
@@ -13,6 +14,8 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+
+import numpy as np
 
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.utils.logging import (CommandTimer, log_info,
@@ -60,6 +63,19 @@ def open_output(args):
     buf = getattr(sys.stdout, "buffer", None)
     raw = buf if buf is not None else _TextWriteCompat(sys.stdout)
     return _TextGlibcFacade(GlibcWriter(raw, owns=False))
+
+
+def open_output_binary(args) -> "GlibcWriter":
+    """The command's output as a bytes writer (-o file or stdout)."""
+    if args.outputFile is not None:
+        return GlibcWriter(open(args.outputFile, "wb"), owns=True)
+    buf = getattr(sys.stdout, "buffer", None)
+    raw = buf if buf is not None else _TextWriteCompat(sys.stdout)
+    return GlibcWriter(raw, owns=False)
+
+
+def close_output_binary(fh) -> None:
+    fh.close()
 
 
 class _TextReadCompat:
@@ -248,3 +264,48 @@ def stream_tables(args, batch_bytes: int | None = None,
                 raise err
     finally:
         close_input_binary(fh)
+
+
+def read_table(args):
+    """The whole input as one PafTable."""
+    fh = open_input_binary(args)
+    try:
+        return pafio.parse_paf_data(fh.read())
+    finally:
+        close_input_binary(fh)
+
+
+def write_table(t, args, order=None) -> None:
+    """Write ``t`` (in ``order``, if given) as the command's output."""
+    fh = open_output_binary(args)
+    try:
+        fh.write(pafio.serialize_paf_bytes(t, order=order))
+    finally:
+        close_output_binary(fh)
+
+
+def write_check_prefix(out, e) -> None:
+    """Before a PafCheckError propagates, write the records before the bad
+    one: the reference checks and writes record by record, so they reach
+    the output before it aborts.  ``e.table`` is the table that was
+    checked."""
+    if getattr(e, "table", None) is not None and e.record_index:
+        out.write(pafio.serialize_paf_bytes(
+            e.table.take(np.arange(e.record_index))))
+
+
+def stream_transform(args, fn) -> None:
+    """read -> fn(batch) -> write, batch by batch (the reference's streaming
+    loop, e.g. impl/paf_invert.c:84-89, a batch at a time)."""
+    out = open_output_binary(args)
+    try:
+        for t in stream_tables(args):
+            try:
+                res = fn(t)
+            except pafio.PafCheckError as e:
+                write_check_prefix(out, e)
+                raise
+            if len(res):
+                out.write(pafio.serialize_paf_bytes(res))
+    finally:
+        close_output_binary(out)

@@ -1,0 +1,93 @@
+"""paffy add_mismatches on the port (counterpart of
+paffy_tpu/commands/simple.py:387-462, ``add_mismatches_main``).
+
+The same flags, output bytes and exit codes as paffy_tpu's: M runs become
+=/X runs (impl/paf_add_mismatches.c), and ``-a`` merges =/X runs back into
+M runs.  Per batch, in the reference's per-record order: the first record
+whose query or target sequence is missing ends the batch; paf_check runs
+before the encode (each M op's =/X runs sum to its length, so the check's
+verdict is the reference's check after the encode); the encoded records
+before a failing record or a missing sequence are written before the
+command fails.  The encode runs K2 and K4 on the device
+(ops/mismatch.encode_mismatches) and serializes the encoded table, where
+paffy_tpu fuses encode and serialize in C; the bytes are the same.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+
+from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch.commands.common import (base_parser,
+                                             close_output_binary,
+                                             open_output_binary, start,
+                                             stream_tables, stream_transform)
+from paffy_tpu_torch.core import pafio
+from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
+from paffy_tpu_torch.ops.transforms import remove_mismatches
+from paffy_tpu_torch.utils.logging import log_info
+
+
+def add_mismatches_main(argv) -> int:
+    p = base_parser("paffy add_mismatches",
+                    "Add mismatches to PAF alignments (so encoding X and = in "
+                    "place of M)")
+    p.add_argument("fasta_files", nargs="*")
+    p.add_argument("-a", "--removeMismatches", action="store_true",
+                   help="Remove mismatches, removing X and = encoding and "
+                        "replacing with M")
+    args = p.parse_args(argv)
+    timer = start(args, "Paffy add_mismatches")
+    if args.removeMismatches:
+        def step(t):
+            t = remove_mismatches(t)
+            pafio.paf_check(t)
+            return t
+        stream_transform(args, step)
+        timer.done()
+        return 0
+
+    devconf.device()        # no device: raise before reading any input
+    with phases.timed("fasta"):
+        pool = SequencePool.from_fasta_files(args.fasta_files)
+    pool.ext        # upload and K2 before the first batch
+    log_info("Read %d sequences from sequence files", len(pool.index))
+    out = open_output_binary(args)
+
+    def write_encoded(t):
+        if len(t):
+            enc = encode_mismatches(t, pool)
+            with phases.timed("serialize"):
+                data = pafio.serialize_paf_bytes(enc)
+            with phases.timed("write"):
+                out.write(data)
+
+    tables = stream_tables(args)
+    try:
+        while True:
+            with phases.timed("parse"):
+                t = next(tables, None)
+            if t is None:
+                break
+            if not len(t):
+                continue
+            bad, role, name = pool.first_missing_seq(t)
+            sel = t if bad < 0 else t.take(np.arange(bad))
+            try:
+                pafio.paf_check(sel)
+            except pafio.PafCheckError as e:
+                write_encoded(sel.take(np.arange(e.record_index)))
+                raise
+            write_encoded(sel)
+            if bad >= 0:
+                raise KeyError(f"No {role} sequence named: {name} found")
+    except KeyError as e:
+        print(str(e.args[0]), file=sys.stderr)
+        return 1
+    finally:
+        tables.close()
+        close_output_binary(out)
+    timer.done()
+    return 0

@@ -10,7 +10,7 @@ chain_score to -1, and op codes are the reference enum values.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
@@ -92,3 +92,11 @@ class PafTable:
             raw_cg=(None if self.raw_cg is None else
                     (self.raw_cg[0], self.raw_cg[1][idx],
                      self.raw_cg[2][idx])))
+
+    def with_cigars(self, ops: np.ndarray, lens: np.ndarray,
+                    off: np.ndarray) -> "PafTable":
+        """The same records with another CSR cigar store (no copy of arrays
+        that already have the model's types)."""
+        return replace(self, ops=ops.astype(np.uint8, copy=False),
+                       lens=lens.astype(np.int64, copy=False),
+                       off=off.astype(np.int64, copy=False))

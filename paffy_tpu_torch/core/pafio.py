@@ -1,5 +1,6 @@
-"""PAF text -> PafTable, and the paf_check sweep (counterpart of
-paffy_tpu/core/pafio.py: parse, ``format_record``, ``paf_check``).
+"""PAF text <-> PafTable, and the paf_check sweep (counterpart of
+paffy_tpu/core/pafio.py: parse, ``serialize_paf_bytes``,
+``format_record``, ``paf_check``).
 
 The behavioural contract is the reference parser (impl/paf.c:137-209: tab
 tokenizer, strand validation, tag dispatch on the two-character code,
@@ -89,6 +90,28 @@ def _parse_native(data: bytes) -> PafTable:
     ints, flags, rtype, qnames, tnames, ops, lens, off = res
     return _table(ints, flags, rtype, qnames, tnames, ops=ops, lens=lens,
                   off=off)
+
+
+def _table_to_arrays(t: PafTable):
+    """The serializer's int64 [n, 13] field matrix and strand/cigar flags."""
+    ints = native.pack_ints13((t.qlen, t.qstart, t.qend, t.tlen, t.tstart,
+                               t.tend, t.num_matches, t.num_bases, t.mapq,
+                               t.score, t.tile_level, t.chain_id,
+                               t.chain_score))
+    flags = t.strand.astype(np.uint8) | (t.has_cigar.astype(np.uint8) << 1)
+    return ints, flags
+
+
+def serialize_paf_bytes(t: PafTable, order=None) -> memoryview:
+    """The records as PAF lines (the native serializer), as a zero-copy
+    memoryview.  ``order`` (an int64 permutation) emits record order[r] at
+    line r without reordering the table."""
+    if len(t) == 0:
+        return memoryview(b"")
+    ints, flags = _table_to_arrays(t)
+    return native.serialize_paf_arrays(ints, flags, t.type, t.qname, t.tname,
+                                       t.ops, t.lens, t.off, order=order,
+                                       raw_cig=t.raw_cg).data
 
 
 def cigar_to_string(ops: np.ndarray, lens: np.ndarray) -> str:

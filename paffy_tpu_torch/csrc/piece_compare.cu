@@ -54,14 +54,19 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "words.cuh"
+
 namespace {
+
+using paffy::kFull;
+using paffy::realign;
+using paffy::zero_byte_flags;
 
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreads = 32 * kWarpsPerBlock;
 constexpr int kPiecesPerWarp = 8;    // table entries held by lanes 0..7
 constexpr int kWindow = 32 * 16;     // target bytes of one warp step
 constexpr int kUnroll = 2;           // steps whose loads are issued together
-constexpr unsigned kFull = 0xffffffffu;
 
 // The four words' equal-byte flags are folded into one word: byte b of word
 // k sets bit 8b + 7 - k.  kFlagsBelow[x] has the bits of bytes 0..x-1.
@@ -76,26 +81,6 @@ __constant__ uint32_t kFlagsBelow[17] = {
     flags_below(8),  flags_below(9),  flags_below(10), flags_below(11),
     flags_below(12), flags_below(13), flags_below(14), flags_below(15),
     flags_below(16)};
-
-// The top bit of each zero byte of x: (x & 0x7F) + 0x7F sets a byte's top
-// bit unless its low seven bits are 0, and never carries into the next byte.
-__device__ __forceinline__ uint32_t zero_byte_flags(uint32_t x) {
-  return ~(((x & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | x | 0x7F7F7F7Fu);
-}
-
-// Bytes [sh, sh+16) of the 32 bytes lo ++ hi (little-endian words).  The
-// word shift is done with selects, so no register array is indexed at run
-// time.
-__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int sh) {
-  uint32_t v0 = lo.x, v1 = lo.y, v2 = lo.z, v3 = lo.w;
-  uint32_t v4 = hi.x, v5 = hi.y;
-  const uint32_t v6 = hi.z, v7 = hi.w;
-  if (sh & 8) { v0 = v2; v1 = v3; v2 = v4; v3 = v5; v4 = v6; v5 = v7; }
-  if (sh & 4) { v0 = v1; v1 = v2; v2 = v3; v3 = v4; v4 = v5; }
-  const unsigned bits = 8u * static_cast<unsigned>(sh & 3);
-  return make_uint4(__funnelshift_r(v0, v1, bits), __funnelshift_r(v1, v2, bits),
-                    __funnelshift_r(v2, v3, bits), __funnelshift_r(v3, v4, bits));
-}
 
 __device__ __forceinline__ void flush(unsigned count, int rec,
                                       unsigned long long* match) {

@@ -9,7 +9,8 @@ One explicit ``torch.device`` for every command:
   * anything else raises.
 
 Results cross back to the host as int64 numpy arrays (``to_host_i64``), the
-PAF data model's integer type.
+PAF data model's integer type, or as they are through pinned memory
+(``download``, for large outputs).
 """
 
 from __future__ import annotations
@@ -50,3 +51,14 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type != "cuda":
         return host
     return host.pin_memory().to(dev, non_blocking=True)
+
+
+def download(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a host numpy array of its own type; CUDA copies go
+    through pinned memory (waits for the device)."""
+    if t.device.type != "cuda":
+        return t.numpy()
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+    return host.numpy()

@@ -2,11 +2,13 @@
 build in paffy_tpu/native/__init__.py).
 
 On first use, every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, which is
+(``sm_90a``), one ``nvcc`` per file, all started together, and the objects
+are linked into one shared library with a plain C interface, which is
 loaded with ``ctypes`` -- no PyTorch headers, so a build takes seconds.
-The library's name carries a hash of the sources and flags, so an edited
-source rebuilds; it lives in ``paffy_tpu_torch/_build/`` (git-ignored).
-A failed build raises: nothing falls back.
+The library's name carries a hash of the sources (``*.cu`` and ``*.cuh``)
+and flags, so an edited source rebuilds; it lives in
+``paffy_tpu_torch/_build/`` (git-ignored).  A failed build raises: nothing
+falls back.
 
 C interface (every entry point launches on the given stream, allocates
 nothing, and returns ``cudaGetLastError()``; ``check`` raises on non-zero):
@@ -14,6 +16,15 @@ nothing, and returns ``cudaGetLastError()``; ``check`` raises on non-zero):
     int paffy_build_ext(const u8* pool, i64 L, u8* ext, cudaStream_t s)
     int paffy_piece_counts(const u8* ext, i64 ext_len, const i64* table,
                            i64 n_pieces, u64* match, cudaStream_t s)
+    int paffy_run_counts(const u8* ext, i64 ext_len, const i64* table,
+                         i64 n_pieces, i32* counts, cudaStream_t s)
+    int paffy_run_fill(const u8* ext, i64 ext_len, const i64* table,
+                       i64 n_pieces, const i64* first_out, i64* starts,
+                       u8* states, cudaStream_t s)
+    int paffy_tile_sweep(i64 n_seqs, const i64* seq_off, const i64* order,
+                         const i64* arena_off, const i64* run_off,
+                         const i64* istart, const i64* iend, u16* arena,
+                         i64 cap, i64* levels, cudaStream_t s)
     const char* paffy_error_string(int code)
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds one
@@ -35,9 +46,10 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"piece_compare": 0, "build_ext": 0}
+LAUNCHES = {"piece_compare": 0, "build_ext": 0, "run_counts": 0,
+            "run_fill": 0, "tile_sweep": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -54,7 +66,7 @@ def sources() -> list[Path]:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sources():
+    for p in sorted(CSRC.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
@@ -74,22 +86,46 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpaffy_torch_kernels_{_digest()}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise on the first
+    that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate(timeout=900)[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed with exit code {p.returncode}:"
+                               f"\n{' '.join(c)}\n{o}")
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile the sources unless a library of the same hash exists.
-    ``nvcc``'s output (``-Xptxas -v``: registers, shared memory, spills per
-    kernel) is kept beside the library; see ``build_log``."""
+    """Compile the sources unless a library of the same hash exists: one
+    nvcc per source, all at once, then one link.  ``nvcc``'s output
+    (``-Xptxas -v``: registers, shared memory, spills per kernel) is kept
+    beside the library; see ``build_log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
+    tag = f"{os.getpid()}.tmp"
+    objs = [out.with_name(f"{p.stem}.{tag}.o") for p in sources()]
+    tmp = out.with_name(f"{out.name}.{tag}")
+    nvcc = _nvcc()
+    try:
+        log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                        for p, o in zip(sources(), objs)])
+        # the link names the same target, or nvcc assumes an old default
+        log += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+        raise
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text(log)
     os.replace(tmp, out)
     return out
 
@@ -111,6 +147,13 @@ def load() -> ctypes.CDLL:
             lib.paffy_build_ext.restype = ctypes.c_int
             lib.paffy_piece_counts.argtypes = [vp, i64, vp, i64, vp, vp]
             lib.paffy_piece_counts.restype = ctypes.c_int
+            lib.paffy_run_counts.argtypes = [vp, i64, vp, i64, vp, vp]
+            lib.paffy_run_counts.restype = ctypes.c_int
+            lib.paffy_run_fill.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp]
+            lib.paffy_run_fill.restype = ctypes.c_int
+            lib.paffy_tile_sweep.argtypes = [i64, vp, vp, vp, vp, vp, vp, vp,
+                                             i64, vp, vp]
+            lib.paffy_tile_sweep.restype = ctypes.c_int
             lib.paffy_error_string.argtypes = [ctypes.c_int]
             lib.paffy_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -30,8 +30,12 @@ _lib = None
 
 _I64P = ctypes.POINTER(ctypes.c_longlong)
 _U8P = ctypes.POINTER(ctypes.c_ubyte)
+_U16P = ctypes.POINTER(ctypes.c_ushort)
 _LL = ctypes.c_longlong
 _CP = ctypes.c_char_p
+# leading arguments of encode_serialize_sizes / _fill
+_ENC_COMMON = [_LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _U8P, _I64P, _I64P,
+               _U8P, _I64P, _I64P]
 
 
 def _cpu_features() -> bytes:
@@ -111,6 +115,26 @@ _SIGNATURES = (
                                      _I64P, _I64P, _I64P]),
     ("synth_query_pool", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P, _LL,
                                 ctypes.c_ulonglong]),
+    ("paf_serialize_sizes", None, [_LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP,
+                                   _U8P, _I64P, _I64P, _I64P, _I64P, _I64P,
+                                   _LL]),
+    ("paf_serialize_fill", _LL, [_LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP,
+                                 _U8P, _I64P, _I64P, _I64P, _CP, _I64P, _I64P,
+                                 _I64P, _CP, _LL]),
+    ("encode_rebuild_offsets", None, [_LL, _U8P, _I64P, _I64P, _I64P, _I64P,
+                                      _U8P, _I64P]),
+    ("match_intervals", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P, _I64P,
+                              _I64P]),
+    ("query_walk_violation", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P,
+                                   _I64P]),
+    ("encode_runs_per_mop", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P,
+                                   _I64P, _LL]),
+    ("encode_runs_fill_cigar", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P,
+                                      _I64P, _U8P, _I64P, _LL]),
+    ("encode_serialize_sizes", None, _ENC_COMMON + [_I64P, _LL]),
+    ("encode_serialize_fill", _LL, _ENC_COMMON + [_I64P, _CP, _LL]),
+    ("tile_sweep", None, [_LL, _I64P, _I64P, _I64P, _I64P, _I64P, _U16P, _LL,
+                          _I64P]),
 )
 
 
@@ -513,3 +537,163 @@ def synth_query_pool(pool: np.ndarray, lens, qpos0, tpos0, rev,
     lib.synth_query_pool(_p_u8(pool), len(lens), _p_i64(_i64(lens)),
                          _p_i64(_i64(qpos0)), _p_i64(_i64(tpos0)),
                          _p_u8(_u8(rev)), keep_per_mille, seed)
+
+
+def serialize_paf_arrays(ints, flags, rtype, qnames, tnames, ops, lens, off,
+                         order=None, raw_cig=None,
+                         n_threads: int | None = None) -> np.ndarray:
+    """PAF lines of the records given, as a uint8 array, in two threaded
+    passes (exact sizes, then fill; tag rules of impl/paf.c:317-389).
+    ``order`` (an int64 permutation) emits record order[r] at line r;
+    ``raw_cig`` = (buf, cg_start, cg_len) emits each cigar verbatim from
+    the input buffer (a raw-cigar table)."""
+    lib = get_lib()
+    n = len(flags)
+    pool, qoff, toff = _name_pool(qnames, tnames)
+    ints, flags, rtype, ops = _i64(ints), _u8(flags), _u8(rtype), _u8(ops)
+    lens, off = _i64(lens), _i64(off)
+    p_order = None
+    if order is not None:
+        order = _i64(order)
+        n = len(order)
+        p_order = _p_i64(order)
+    raw_buf = p_cg_start = p_cg_len = None
+    if raw_cig is not None:
+        raw_buf, cg_start, cg_len = raw_cig
+        cg_start, cg_len = _i64(cg_start), _i64(cg_len)
+        p_cg_start, p_cg_len = _p_i64(cg_start), _p_i64(cg_len)
+    nt = _default_threads(n_threads)
+    out_off = np.zeros(n + 1, dtype=np.int64)
+    lib.paf_serialize_sizes(n, _p_i64(ints), _p_u8(flags), _p_u8(rtype),
+                            _p_i64(qoff), _p_i64(toff), pool, _p_u8(ops),
+                            _p_i64(lens), _p_i64(off), p_order, p_cg_len,
+                            _p_i64(out_off[1:]), nt)
+    np.cumsum(out_off[1:], out=out_off[1:])
+    out = np.empty(int(out_off[-1]), dtype=np.uint8)
+    rc = lib.paf_serialize_fill(n, _p_i64(ints), _p_u8(flags), _p_u8(rtype),
+                                _p_i64(qoff), _p_i64(toff), pool, _p_u8(ops),
+                                _p_i64(lens), _p_i64(off), p_order, raw_buf,
+                                p_cg_start, p_cg_len, _p_i64(out_off),
+                                out.ctypes.data_as(_CP), nt)
+    if rc != 0:
+        raise RuntimeError("paf_serialize_fill wrote other sizes than it "
+                           "measured")
+    return out
+
+
+def encode_rebuild_offsets(ops, lens, runs_per_mop, total_out):
+    """The CSR rebuild of the mismatch encoder, in one walk over the ops:
+    (out_off_per_op [n_ops+1], m_out_off [n_mops], new_ops, new_lens), with
+    every non-M op already written through at its slot and each M op given
+    ``runs_per_mop`` slots starting at its ``m_out_off``."""
+    lib = get_lib()
+    ops = _u8(ops)
+    out_off = np.empty(len(ops) + 1, dtype=np.int64)
+    m_out_off = np.empty(len(runs_per_mop), dtype=np.int64)
+    new_ops = np.empty(total_out, dtype=np.uint8)
+    new_lens = np.empty(total_out, dtype=np.int64)
+    lib.encode_rebuild_offsets(len(ops), _p_u8(ops), _p_i64(_i64(lens)),
+                               _p_i64(_i64(runs_per_mop)), _p_i64(out_off),
+                               _p_i64(m_out_off), _p_u8(new_ops),
+                               _p_i64(new_lens))
+    return out_off, m_out_off, new_ops, new_lens
+
+
+def match_intervals(off, ops, lens, qstart):
+    """(rec, start, end) of every aligned (M/=/X) run's query interval, by
+    the reference's forward walk from qstart (impl/paf.c:690-709)."""
+    lib = get_lib()
+    n_ops = len(ops)
+    rec, start, end = (np.empty(n_ops, dtype=np.int64) for _ in range(3))
+    n = int(lib.match_intervals(len(off) - 1, _p_i64(_i64(off)),
+                                _p_u8(_u8(ops)), _p_i64(_i64(lens)),
+                                _p_i64(_i64(qstart)), _p_i64(rec),
+                                _p_i64(start), _p_i64(end)))
+    return rec[:n], start[:n], end[:n]
+
+
+def query_walk_violation(t) -> int:
+    """First record that breaks the query-side coverage-walk asserts of
+    tile and to_bed (impl/paf.c:691-709), or -1."""
+    lib = get_lib()
+    return int(lib.query_walk_violation(
+        len(t.qstart), _p_i64(_i64(t.off)), _p_u8(_u8(t.ops)),
+        _p_i64(_i64(t.lens)), _p_i64(_i64(t.qstart)), _p_i64(_i64(t.qend)),
+        _p_i64(_i64(t.qlen))))
+
+
+def encode_runs_per_mop(pool: np.ndarray, lens, qpos0, tpos0, rev,
+                        n_threads: int | None = None) -> np.ndarray:
+    """=/X runs of each M op (the C count pass over the guarded host pool);
+    a reference for K4's count."""
+    lib = get_lib()
+    out = np.empty(len(lens), dtype=np.int64)
+    lib.encode_runs_per_mop(_p_u8(_u8(pool)), len(lens), _p_i64(_i64(lens)),
+                            _p_i64(_i64(qpos0)), _p_i64(_i64(tpos0)),
+                            _p_u8(_u8(rev)), _p_i64(out),
+                            _default_threads(n_threads))
+    return out
+
+
+def encode_runs_fill_cigar(pool: np.ndarray, lens, qpos0, tpos0, rev,
+                           dest_off, new_ops: np.ndarray,
+                           new_lens: np.ndarray,
+                           n_threads: int | None = None) -> None:
+    """Write each M op's =/X runs (op code, length) into ``new_ops`` /
+    ``new_lens`` from ``dest_off[j]`` on (the C fill pass); a reference for
+    K4's fill."""
+    lib = get_lib()
+    if (new_ops.dtype != np.uint8 or new_lens.dtype != np.int64
+            or not new_ops.flags.c_contiguous
+            or not new_lens.flags.c_contiguous):
+        raise ValueError("new_ops must be contiguous uint8, new_lens int64")
+    lib.encode_runs_fill_cigar(_p_u8(_u8(pool)), len(lens),
+                               _p_i64(_i64(lens)), _p_i64(_i64(qpos0)),
+                               _p_i64(_i64(tpos0)), _p_u8(_u8(rev)),
+                               _p_i64(_i64(dest_off)), _p_u8(new_ops),
+                               _p_i64(new_lens), _default_threads(n_threads))
+
+
+def encode_serialize(t, pool: np.ndarray, qpool_off, tpool_off,
+                     n_threads: int | None = None) -> np.ndarray:
+    """paffy_tpu's fused add_mismatches output (M runs encoded to =/X runs
+    and serialized in one C pass pair) as a uint8 array: the reference the
+    port's encode-then-serialize is held to."""
+    from paffy_tpu_torch.core.pafio import _table_to_arrays
+    lib = get_lib()
+    ints, flags = _table_to_arrays(t)
+    name_pool, qoff, toff = _name_pool(t.qname, t.tname)
+    n = len(flags)
+    args = (n, _p_i64(ints), _p_u8(flags), _p_u8(_u8(t.type)), _p_i64(qoff),
+            _p_i64(toff), name_pool, _p_u8(_u8(t.ops)), _p_i64(_i64(t.lens)),
+            _p_i64(_i64(t.off)), _p_u8(_u8(pool)), _p_i64(_i64(qpool_off)),
+            _p_i64(_i64(tpool_off)))
+    nt = _default_threads(n_threads)
+    out_off = np.zeros(n + 1, dtype=np.int64)
+    lib.encode_serialize_sizes(*args, _p_i64(out_off[1:]), nt)
+    np.cumsum(out_off[1:], out=out_off[1:])
+    out = np.empty(int(out_off[-1]), dtype=np.uint8)
+    if lib.encode_serialize_fill(*args, _p_i64(out_off),
+                                 out.ctypes.data_as(_CP), nt) != 0:
+        raise RuntimeError("encode_serialize_fill wrote other sizes than it "
+                           "measured")
+    return out
+
+
+def tile_sweep(order, arena_off, run_off, istart, iend, arena: np.ndarray,
+               saturation: int, levels: np.ndarray) -> None:
+    """The greedy tile sweep in C (impl/paf_tile.c:36-93): records in
+    ``order``, each adding its intervals [istart, iend) (CSR by
+    ``run_off``) into its sequence's counts at ``arena_off`` of the uint16
+    ``arena``, saturating at ``saturation``; the level of a covered record
+    is the ((n+1)//2)-th smallest new count over its n bases.  Mutates
+    ``arena`` and ``levels`` (only covered records are written); a
+    reference for K5."""
+    lib = get_lib()
+    if (arena.dtype != np.uint16 or not arena.flags.c_contiguous
+            or levels.dtype != np.int64 or not levels.flags.c_contiguous):
+        raise ValueError("arena must be contiguous uint16, levels int64")
+    lib.tile_sweep(len(order), _p_i64(_i64(order)), _p_i64(_i64(arena_off)),
+                   _p_i64(_i64(run_off)), _p_i64(_i64(istart)),
+                   _p_i64(_i64(iend)), arena.ctypes.data_as(_U16P),
+                   saturation, _p_i64(levels))

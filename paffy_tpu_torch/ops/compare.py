@@ -49,38 +49,56 @@ def build_piece_table(lens, qpos0, tpos0, rev, rec, pool_len: int,
     Raises ValueError if a piece would read outside its half of ext or a
     record index is outside [0, n_records): the kernel trusts the table.
     """
-    lens = np.asarray(lens, dtype=np.int64)
-    qpos0 = np.asarray(qpos0, dtype=np.int64)
-    tpos0 = np.asarray(tpos0, dtype=np.int64)
-    rev = np.asarray(rev, dtype=bool)
     rec = np.asarray(rec, dtype=np.int64)
+    mop, c0, n, _ = cut_runs(lens, tpos0)
+    table = np.empty((4, len(n)), dtype=np.int64)
+    table[0], table[1] = piece_sources(qpos0, tpos0, rev, pool_len, mop, c0,
+                                       n)
+    table[2] = n
+    table[3] = rec[mop]
+    if len(n) and (table[3].min() < 0 or table[3].max() >= n_records):
+        raise ValueError("an M run's record index is out of range")
+    return table
+
+
+def cut_runs(lens, tpos0):
+    """The pieces of the M runs given: (mop, c0, n, off), the run of each
+    piece, its first column within the run and its column count, and each
+    run's first piece (``off``, length n_runs + 1).  A run is cut every
+    PIECE_COLS columns counted from its first aligned target word; a
+    zero-length run has no piece."""
+    lens = np.asarray(lens, dtype=np.int64)
+    tpos0 = np.asarray(tpos0, dtype=np.int64)
     if lens.size and lens.min() < 0:
         raise ValueError("negative M run length")
     head = tpos0 % WORD           # columns of the first word before the run
-    # a zero-length run has no piece
     nsub = np.where(lens > 0, -(-(lens + head) // PIECE_COLS), 0)
     off = np.zeros(len(lens) + 1, dtype=np.int64)
     np.cumsum(nsub, out=off[1:])
-    total = int(off[-1])
     mop = np.repeat(np.arange(len(lens)), nsub)
-    k = np.arange(total, dtype=np.int64) - off[mop]
+    k = np.arange(int(off[-1]), dtype=np.int64) - off[mop]
     c0 = np.maximum(k * PIECE_COLS - head[mop], 0)
     n = np.minimum((k + 1) * PIECE_COLS - head[mop], lens[mop]) - c0
+    return mop, c0, n, off
+
+
+def piece_sources(qpos0, tpos0, rev, pool_len: int, mop, c0, n):
+    """(qsrc, tsrc): each piece's ascending query and target start in ext.
+    Raises ValueError if a piece would read outside its half of ext: the
+    kernels trust their tables."""
+    qpos0 = np.asarray(qpos0, dtype=np.int64)
+    tpos0 = np.asarray(tpos0, dtype=np.int64)
+    rev = np.asarray(rev, dtype=bool)
     L = np.int64(pool_len)
-    table = np.empty((4, total), dtype=np.int64)
-    table[0] = np.where(rev, 2 * L - 1 - qpos0, qpos0)[mop] + c0
-    table[1] = tpos0[mop] + c0
-    table[2] = n
-    table[3] = rec[mop]
-    if total:
+    qsrc = np.where(rev, 2 * L - 1 - qpos0, qpos0)[mop] + c0
+    tsrc = tpos0[mop] + c0
+    if len(n):
         q_lo = np.where(rev[mop], L, 0)
-        if (np.any(table[0] < q_lo) or np.any(table[0] + n > q_lo + L)
-                or table[1].min() < 0 or np.max(table[1] + n) > L):
+        if (np.any(qsrc < q_lo) or np.any(qsrc + n > q_lo + L)
+                or tsrc.min() < 0 or np.max(tsrc + n) > L):
             raise ValueError(f"an M run reads outside the sequence pool "
                              f"(pool length {pool_len})")
-        if table[3].min() < 0 or table[3].max() >= n_records:
-            raise ValueError("an M run's record index is out of range")
-    return table
+    return qsrc, tsrc
 
 
 def piece_match_counts_plain(ext: torch.Tensor, table: torch.Tensor,

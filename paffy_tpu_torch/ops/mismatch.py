@@ -1,6 +1,7 @@
-"""The sequence pool and per-record column counts (counterpart of
-paffy_tpu/ops/mismatch.py: ``SequencePool`` :55, ``column_match_counts``
-:274; ``first_missing_seq`` is paffy_tpu/commands/simple.py:246).
+"""The sequence pool, per-record column counts and the =/X encoder
+(counterpart of paffy_tpu/ops/mismatch.py: ``SequencePool`` :55,
+``column_match_counts`` :274, ``encode_mismatches`` :347;
+``first_missing_seq`` is paffy_tpu/commands/simple.py:246).
 
 ``SequencePool`` keeps the FASTA bytes in one guarded host array with a
 name index; on the device it holds only ``ext`` (K2's output, a torch
@@ -8,9 +9,10 @@ tensor).  ``from_arrays`` builds it over given bytes and index, which is how
 the tests hand paffy_tpu's pool across as numpy arrays.
 
 ``column_match_counts`` always runs the piece compare on the pool's device
-(K1): there is no host route and no size threshold here, because the
-routing constants of paffy_tpu (mismatch.py:219-222) were measured on
-another machine and the H100's have not been measured yet.
+(K1), and ``encode_mismatches`` the run extraction (K4): there is no host
+route and no size threshold here, because the routing constants of
+paffy_tpu (mismatch.py:219-222, 358-364) were measured on another machine
+and the H100's have not been measured yet.
 """
 
 from __future__ import annotations
@@ -18,11 +20,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch import devconf, native, phases
 from paffy_tpu_torch.core.fasta import fasta_pool_from_bytes, pack_sequences
-from paffy_tpu_torch.core.model import PafTable
+from paffy_tpu_torch.core.model import SEQ_MATCH, SEQ_MISMATCH, PafTable
 from paffy_tpu_torch.ops.compare import build_piece_table, piece_match_counts
 from paffy_tpu_torch.ops.mismatch_device import build_ext_pool
+from paffy_tpu_torch.ops.runs import build_run_table, run_counts, run_fill
 from paffy_tpu_torch.ops.segments import (POOL_GUARD, POOL_W,
                                           build_m_column_batch)
 
@@ -146,3 +149,53 @@ def column_match_counts(t: PafTable, pool: SequencePool
     with phases.timed("kernel"):
         m = devconf.to_host_i64(piece_match_counts(ext, table, len(t)))
     return m, np.diff(b.rec_col_off) - m
+
+
+def encode_mismatches(t: PafTable, pool: SequencePool) -> PafTable:
+    """paf_encode_mismatches over a batch (impl/paf.c:739-784): every M op
+    becomes its =/X runs, every other op (=/X ones included) stays in
+    place; an M op of length 0 leaves nothing, as in paffy_tpu's fused
+    encoder.  The runs come from K4 on the pool's device; the CSR rebuild
+    around them is host code.  A batch without M ops comes back as it is.
+    """
+    with phases.timed("batch"):
+        b = build_m_column_batch(t, pool.offsets_for(t.qname, "query"),
+                                 pool.offsets_for(t.tname, "target"))
+    k = b.n_mops
+    if k == 0:
+        return t
+    with phases.timed("pieces"):
+        table, piece_off = build_run_table(b.lens[:k], b.qpos0[:k],
+                                           b.tpos0[:k], b.rev[:k],
+                                           b.col_off[:k], pool.pool_len)
+    ext = pool.ext
+    with phases.timed("upload", pool.device):
+        table = devconf.upload(table, pool.device)
+    with phases.timed("K4 count"):
+        counts = run_counts(ext, table)
+        per_piece = devconf.to_host_i64(counts)
+    with phases.timed("rebuild"):
+        cs = np.zeros(len(per_piece) + 1, dtype=np.int64)
+        np.cumsum(per_piece, out=cs[1:])
+        runs_per_mop = cs[piece_off[1:]] - cs[piece_off[:-1]]
+        n_runs = int(cs[-1])
+        out_off_per_op, m_out_off, new_ops, new_lens = (
+            native.encode_rebuild_offsets(t.ops, t.lens, runs_per_mop,
+                                          n_runs + len(t.ops) - k))
+    with phases.timed("K4 fill", pool.device):
+        first_out = torch.cumsum(counts, 0, dtype=torch.int64) - counts
+        starts_d, states_d = run_fill(ext, table, first_out, n_runs)
+    with phases.timed("download"):
+        starts = devconf.download(starts_d)
+        states = devconf.download(states_d)
+    del starts_d, states_d
+    with phases.timed("cigar"):
+        # runs are in column order, so in M-op order: run r of M op j goes
+        # to m_out_off[j] + (r - the op's first run)
+        first_run = cs[piece_off[:-1]]
+        dest = np.repeat(m_out_off - first_run, runs_per_mop)
+        dest += np.arange(n_runs, dtype=np.int64)
+        new_ops[dest] = np.where(states != 0, np.uint8(SEQ_MATCH),
+                                 np.uint8(SEQ_MISMATCH))
+        new_lens[dest] = np.diff(starts, append=np.int64(b.n_cols))
+    return t.with_cigars(new_ops, new_lens, out_off_per_op[t.off])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions on a GPU, at
-small shapes and at K1's edge cases (chip_smoke.k1_edge_cases, also held
-against the C loop on the CPU by tests/test_torch_compare.py).
+small shapes and at the edge cases of K1 (chip_smoke.k1_edge_cases, also
+held against the C loop on the CPU by tests/test_torch_compare.py) and K4
+(chip_smoke.k4_edge_cases); K4 and K5 also against the C passes.
 
 Needs a CUDA device and nvcc; skips without a device.  This file imports no
 JAX and nothing of paffy_tpu, so it also runs where JAX is absent:
@@ -18,9 +19,10 @@ import torch
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
-from paffy_tpu_torch import kernels, native  # noqa: E402
+from paffy_tpu_torch import devconf, kernels, native  # noqa: E402
 from paffy_tpu_torch.core.pafio import parse_paf_text  # noqa: E402
-from paffy_tpu_torch.ops import compare  # noqa: E402
+from paffy_tpu_torch.ops import compare, mismatch_device  # noqa: E402
+from paffy_tpu_torch.ops import runs, tile_device  # noqa: E402
 from paffy_tpu_torch.ops import mismatch as port_mm  # noqa: E402
 from paffy_tpu_torch.ops.mismatch_device import (build_ext_pool,  # noqa: E402
                                                  build_ext_pool_plain)
@@ -153,3 +155,114 @@ def test_wrappers_reject_mixed_devices_and_types(cuda):
                                    table.to(cuda), 1)
     with pytest.raises(ValueError):
         build_ext_pool(ext.to(torch.int16))
+
+
+def random_runs(rng, lens, L):
+    """M runs of the lengths given over a pool of length L, on both
+    strands: (lens, qpos0, tpos0, rev)."""
+    lens = np.asarray(lens, dtype=np.int64)
+    k = len(lens)
+    top = int(lens.max(initial=0))
+    rev = rng.random(k) < 0.5
+    qpos0 = np.where(rev, rng.integers(top, L, k),
+                     rng.integers(0, L - top, k))
+    tpos0 = rng.integers(0, L - top, k)
+    return lens, qpos0, tpos0, rev
+
+
+@pytest.mark.parametrize("lens", [
+    [1], [15], [16], [17], [511], [512], [513], [P - 1], [P], [P + 1],
+    [2 * P + 1], [1, P - 1, P, P + 1, 0, 5], list(range(0, 3 * P, 97))],
+    ids=lambda v: f"{len(v)}runs-max{max(v)}")
+def test_run_kernels_match_plain_and_c(cuda, lens):
+    rng = np.random.default_rng(len(lens) + max(lens) + 1)
+    L = 50_000
+    pool = np.frombuffer(b"ACGTacgtN", dtype=np.uint8)[
+        rng.integers(0, 9, L)].copy()
+    before = dict(kernels.LAUNCHES)
+    *_, n_runs, err = chip_smoke.k4_check(
+        torch, devconf, native, runs, mismatch_device, pool,
+        *random_runs(rng, lens, L))
+    torch.cuda.synchronize()
+    assert err == 0 and n_runs >= sum(1 for n in lens if n)
+    assert kernels.LAUNCHES["run_counts"] == before["run_counts"] + 1
+    assert kernels.LAUNCHES["run_fill"] == before["run_fill"] + (n_runs > 0)
+
+
+@pytest.mark.parametrize("label", chip_smoke.K4_EDGE_LABELS)
+def test_run_kernels_edge_cases(cuda, label):
+    c = chip_smoke.k4_edge_cases()[label]
+    *_, n_runs, err = chip_smoke.k4_check(
+        torch, devconf, native, runs, mismatch_device, c["pool"], c["lens"],
+        c["qpos0"], c["tpos0"], c["rev"])
+    assert err == 0 and n_runs > len(c["lens"])
+
+
+def tile_case(rng, n_seqs, n_records, seq_len, max_iv):
+    """A random tile sweep input: records on n_seqs query sequences, each
+    with up to max_iv disjoint sorted intervals; (order, arena_off,
+    run_off, istart, iend, total)."""
+    seq = rng.integers(0, n_seqs, n_records)
+    arena_off = seq * seq_len
+    n_iv = rng.integers(0, max_iv + 1, n_records)
+    istart, iend = [], []
+    for i in range(n_records):
+        cuts = np.sort(rng.choice(seq_len, 2 * n_iv[i], replace=False))
+        istart.append(cuts[0::2])
+        iend.append(cuts[1::2])
+    run_off = np.concatenate([[0], np.cumsum(n_iv)]).astype(np.int64)
+    order = rng.permutation(n_records).astype(np.int64)
+    return (order, arena_off.astype(np.int64), run_off,
+            np.concatenate(istart).astype(np.int64),
+            np.concatenate(iend).astype(np.int64), n_seqs * seq_len)
+
+
+@pytest.mark.parametrize("n_seqs,n_records,max_iv,cap", [
+    (1, 40, 30, tile_device.SATURATION), (3, 120, 2500, tile_device.SATURATION),
+    (2, 60, 5, 3), (1, 1, 0, tile_device.SATURATION)],
+    ids=["one-seq", "many-intervals", "saturating", "empty"])
+def test_tile_kernel_matches_plain_and_c(cuda, n_seqs, n_records, max_iv,
+                                         cap):
+    rng = np.random.default_rng(n_records + max_iv)
+    *args, total = tile_case(rng, n_seqs, n_records, 20_000, max_iv)
+    dargs = [torch.from_numpy(a).to(cuda) for a in args]
+    arena = torch.zeros(total, dtype=torch.int16, device=cuda)
+    before = kernels.LAUNCHES["tile_sweep"]
+    got = tile_device.tile_sweep(*dargs, arena, cap)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["tile_sweep"] == before + 1
+    arena_p = torch.zeros_like(arena)
+    assert torch.equal(got, tile_device.tile_sweep_plain(*dargs, arena_p,
+                                                         cap))
+    assert torch.equal(arena, arena_p)
+    arena_c = np.zeros(total, dtype=np.uint16)
+    levels_c = np.full(n_records, 32767, dtype=np.int64)
+    native.tile_sweep(*args, arena_c, cap, levels_c)
+    np.testing.assert_array_equal(got.cpu().numpy(), levels_c)
+    np.testing.assert_array_equal(arena.cpu().numpy().view(np.uint16),
+                                  arena_c)
+
+
+def test_run_and_tile_wrappers_refuse_bad_inputs(cuda):
+    ext = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    table = torch.zeros((5, 1), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        runs.run_counts(ext, table.cpu())
+    with pytest.raises(ValueError):
+        runs.run_counts(ext, table.to(torch.int32))
+    with pytest.raises(ValueError):
+        runs.run_counts(ext[8:40], table)
+    with pytest.raises(ValueError):
+        runs.run_fill(ext, table, torch.zeros(1, dtype=torch.int32,
+                                              device=cuda), 1)
+    idx = torch.zeros(1, dtype=torch.int64, device=cuda)
+    two = torch.zeros(2, dtype=torch.int64, device=cuda)
+    arena = torch.zeros(8, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        tile_device.tile_sweep(idx, idx, two, idx, idx, arena.cpu())
+    with pytest.raises(ValueError):
+        tile_device.tile_sweep(idx, idx, two, idx, idx, arena.to(torch.int32))
+    with pytest.raises(ValueError):
+        tile_device.tile_sweep(idx.int(), idx, two, idx, idx, arena)
+    with pytest.raises(ValueError):
+        tile_device.tile_sweep(idx, idx, two, idx, idx, arena, cap=0)

@@ -297,8 +297,10 @@ def test_smoke_synthesis_byte_equal_and_view(tmp_path):
 
 def make_pins(d) -> dict:
     """The digests chip_smoke.py pins: its chromosome-scale synthesis
-    through paffy_tpu's native library, and paffy_tpu's view -s and
-    view -s -t on those files (its host route)."""
+    through paffy_tpu's native library; paffy_tpu's view -s and
+    view -s -t, add_mismatches, and add_mismatches -a on that output, on
+    those files (its host routes); chip_smoke.tile_input made from that
+    output, and paffy_tpu's tile on it."""
     os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
     fa, paf, _ = smoke_files(d, True)
     pins = {"seqs.fa": chip_smoke.sha256_file(fa),
@@ -308,12 +310,25 @@ def make_pins(d) -> dict:
         assert ref_main(["view", "-i", paf, *flags, "-o", out, fa]) == 0
         pins[tag] = chip_smoke.sha256_file(out)
         print(tag, open(out, "rb").read().splitlines()[-1].decode())
+    am, tpaf = os.path.join(d, "am.paf"), os.path.join(d, "tile.paf")
+    runs = {"add_mismatches": (["add_mismatches", "-i", paf, fa], am),
+            "add_mismatches -a": (["add_mismatches", "-a", "-i", am],
+                                  os.path.join(d, "am_a.paf")),
+            "tile": (["tile", "-i", tpaf], os.path.join(d, "tiled.paf"))}
+    for tag, (argv, out) in runs.items():
+        if tag == "tile":
+            pathlib.Path(tpaf).write_bytes(
+                chip_smoke.tile_input(pathlib.Path(am).read_bytes()))
+            pins["tile.paf"] = chip_smoke.sha256_file(tpaf)
+        assert ref_main([*argv, "-o", out]) == 0
+        pins[tag] = chip_smoke.sha256_file(out)
     return pins
 
 
 def test_pins_are_digests():
     assert set(chip_smoke.PINS) == {"seqs.fa", "in.paf", "view -s",
-                                    "view -s -t"}
+                                    "view -s -t", "add_mismatches",
+                                    "add_mismatches -a", "tile.paf", "tile"}
     for v in chip_smoke.PINS.values():
         assert len(v) == 64 and int(v, 16) >= 0
     assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()

@@ -152,6 +152,30 @@ def test_port_view_runs_without_loading_jax(tmp_path):
     assert r.stdout.startswith("Total-alignments:1\t")
 
 
+@pytest.mark.parametrize("argv,first", [
+    (["add_mismatches", "-i", "in.paf", "s.fa"], "cg:Z:4=1X5="),
+    (["add_mismatches", "-a", "-i", "in.paf"], "cg:Z:10M"),
+    (["tile", "-i", "in.paf"], "tl:i:1"),
+], ids=["add_mismatches", "add_mismatches-a", "tile"])
+def test_port_commands_run_without_loading_jax(tmp_path, argv, first):
+    (tmp_path / "s.fa").write_text(">q\nACGTACGTAC\n>t\nACGTTCGTAC\n")
+    (tmp_path / "in.paf").write_text(
+        "q\t10\t0\t10\t+\tt\t10\t0\t10\t10\t10\t60\tcg:Z:10M\n")
+    code = ("import sys\n"
+            "from paffy_tpu_torch.cli import paffy_main\n"
+            "rc = paffy_main(sys.argv[1:])\n"
+            "loaded = [m for m in sys.modules if m in ('jax', 'paffy_tpu')\n"
+            "          or m.startswith(('jax.', 'paffy_tpu.'))]\n"
+            "assert not loaded, f'modules were imported: {loaded}'\n"
+            "sys.exit(rc)\n")
+    env = dict(os.environ, PAFFY_TPU_PLATFORM="cpu")
+    r = subprocess.run([sys.executable, "-c", code, *argv], cwd=tmp_path,
+                       env=dict(env, PYTHONPATH=str(REPO)),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert first in r.stdout
+
+
 def test_port_launcher_runs_without_paffy_tpu(tmp_path):
     (tmp_path / "s.fa").write_text(">q\nACGTACGTAC\n>t\nACGTTCGTAC\n")
     (tmp_path / "in.paf").write_text(
