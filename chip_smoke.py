@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s``,
-``paffy add_mismatches`` and ``paffy tile`` at chromosome scale through the
-port's CUDA kernels.
+``add_mismatches``, ``tile``, ``chain`` and ``trim``, and the fused
+``add_mismatches | chain | tile | trim`` pipeline, at chromosome scale
+through the port's CUDA kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -40,16 +41,34 @@ Phases (any failure exits non-zero and prints no result line):
               equal the pinned digest of paffy_tpu's ``tile``; K5's levels
               must equal its plain version on the card and the C sweep
               native.tile_sweep, and span more than one level.
-8. timing  -- every kernel and its plain version with CUDA events (median
-              after warm-up), each beside its bound (the bytes it must move
-              over 3.35 TB/s), each command's wall time split by phase and
-              its peak device memory.  A kernel's ``ms`` is one call at a
-              time between two events, so it includes the host's launch
-              work; ``ms_20_in_a_row`` is the time per call of 20 calls
-              between two events, which hides that work behind the kernels.
-              K5 mutates its count arena: each timed call zeroes it first,
-              inside the timed window.  A command's peak device memory is
-              counted above the tensors this script already held.
+8. chain   -- the chain input (chain_input: one gapless record per M run,
+              216,159 records, paffy_tpu's ``shatter`` of in.paf), pinned;
+              the port's ``chain`` on it (launch counts reset before it)
+              must equal the pinned digest of paffy_tpu's ``chain`` and
+              launch K6.  K6 must equal the C DP (native.chain_dp) at full
+              size on both strand sets, and its plain version on the card
+              and the C DP on the first K6_PREFIX records of each group and
+              on its edge cases (k6_edge_cases).
+9. pipeline -- the port's ``add_mismatches``, ``chain``, ``tile`` and
+              ``trim`` one after another on chain_input, with files between
+              them, each pinned and each launching its kernels; then
+              ``run_pipeline`` in process on the same table with a pool
+              from the same FASTA, pinned, with its records per second.
+10. timing -- every kernel and its plain version with CUDA events (median
+              after warm-up), each beside its bound: the larger of the
+              bytes it must move over 3.35 TB/s and, for K6, its integer
+              operations over the card's INT32 rate; each command's wall
+              time split by phase and its peak device memory.  A kernel's
+              ``ms`` is one call at a time between two events, so it
+              includes the host's launch work; ``ms_in_a_row`` is the time
+              per call of ``in_a_row`` calls (20, fewer for a kernel too
+              slow for 20) between two events, which hides that work
+              behind the kernels.  K5 mutates its count arena: each timed
+              call zeroes it first, inside the timed window.  K6's timed
+              call is one chain run's launches, one per strand set; its
+              plain version is timed on the prefix.  A command's peak
+              device memory is counted above the tensors this script
+              already held.
 
 Integer and byte outputs are compared exactly.  The line before the last
 is the kernels' JSON record; the last line is
@@ -82,8 +101,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 
 # SHA-256 of the seed-0 synthesis, of paffy_tpu's view, add_mismatches and
 # add_mismatches -a output on it (host C routes), of tile_input made from
-# that add_mismatches output, and of paffy_tpu's tile on it; how they were
-# made is in PERF.md
+# that add_mismatches output, and of paffy_tpu's tile on it; of
+# chain_input (paffy_tpu's shatter of in.paf), of paffy_tpu's chain on it,
+# of its add_mismatches, chain, tile and trim one after another from it,
+# and of its run_pipeline on it; made by tests/test_torch_host.py --pins
 PINS = {
     "seqs.fa": "5e4d5d8787566cbba4677b110e206d3355fdabe151b45a21851ab56c9f6b9c80",
     "in.paf": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
@@ -93,6 +114,13 @@ PINS = {
     "add_mismatches -a": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
     "tile.paf": "66f1524d0fd23042b3855f914d256ee309c45019ee833c1758fa604c788205f8",
     "tile": "e6338aff2b2f86ffde6fc1ec79179640ab28feb310e12d79ed02310b60dbc798",
+    "chain.paf": "e4691f7732a3ba5b7e9111e0d0e56f984b93d52d2eafaf63da0712f4e0bc720c",
+    "chain": "d8876d0174e3fcb85b02a69c5d835d2af632e22e533fb7bb06faf31ab866248b",
+    "pipeline add_mismatches": "028eb4fe3aeafda5389d152bbc7e512ea1a5e6b763ae8a32f915bb7b74463e6a",
+    "pipeline chain": "47f3c9bc86f6894f4940e11c210270fa200e83ae42f3b656c2c4678a619c30b6",
+    "pipeline tile": "94139344fdb2a669862ae4877a65390594325b39b53262457ce42cb12f3f8bd8",
+    "pipeline trim": "4327696a68f292d133479aab577a7d1c79b01c8cc1867d766cc3ef92b4ad05af",
+    "run_pipeline": "4327696a68f292d133479aab577a7d1c79b01c8cc1867d766cc3ef92b4ad05af",
 }
 
 # the K1 edge cases, see k1_edge_cases
@@ -104,6 +132,21 @@ K4_EDGE_LABELS = K1_EDGE_LABELS[:2] + ("placed flips, + strand",
 # the tile input, see tile_input
 TILE_COPIES = 3
 TILE_SHIFT = 250_000
+# paffy chain's default costs (-d, -e, -g), K6's arguments on the main path
+CHAIN_COSTS = (5000, 1, 1_000_000)
+# K6's plain version runs on the first records of each group only
+K6_PREFIX = 3000
+K6_BLOCK = 256                 # threads of a K6 block (csrc/chain_dp.cu)
+# K6's operation bound: 32-bit integer instructions per candidate of the
+# windows (int64 compare of the slot, tgap and its two bounds, qgap + tgap,
+# the zero test, the gap cost's multiply-add, g < score, the value, the
+# key compare and the selects of the best), over the H100 SXM's integer
+# rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (NVIDIA Hopper white paper)
+K6_OPS_PER_CANDIDATE = 30
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+K6_EDGE_LABELS = ("wide windows", "ties, zero gaps, g == score",
+                  "tgap at max_gap", "mirrored coordinates", "past 2^40",
+                  "groups of 0 and 1", "many groups and a large one")
 
 
 def log(msg: str) -> None:
@@ -358,6 +401,94 @@ def tile_input(encoded: bytes, seed=SEED) -> bytes:
     return "".join(out).encode("latin-1")
 
 
+def chain_input(w, seq_len=SEQ_LEN) -> bytes:
+    """The chain input: one gapless record per M run of the synthesis
+    ``w`` (build_files), in order, byte for byte paffy_tpu's ``shatter``
+    of in.paf: '-' records walk down the query, the run length in fields
+    10-11, MAPQ 60, the parent's AS, s1:i:0 and cg:Z:<len>M."""
+    runs, rev = w["runs"], w["rev"]
+    qs = np.where(rev, w["qpos"] - runs + 1, w["qpos"])
+    score = 2 * np.bincount(w["run_rec"], weights=runs).astype(np.int64)
+    cols = zip(qs.tolist(), np.where(rev, "-", "+").tolist(),
+               w["tpos"].tolist(), runs.tolist(),
+               score[w["run_rec"]].tolist())
+    return "".join(
+        f"q_chr\t{seq_len}\t{q}\t{q + n}\t{s}\tt_chr\t{seq_len}\t{t}\t"
+        f"{t + n}\t{n}\t{n}\t60\tAS:i:{a}\ts1:i:0\tcg:Z:{n}M\n"
+        for q, s, t, n, a in cols).encode()
+
+
+def k6_edge_cases(seed=SEED, scale=1.0):
+    """K6's edge cases: {label: (groups, (gap_open, gap_extend, max_gap))},
+    a group being (qs, qe, ts, te, score) int64 arrays in processing order
+    (ascending qs).  ``scale`` shrinks the record counts (the CPU tests).
+
+    * wide windows: dense records, so the windows grow from 1 to past 4x
+      K6_BLOCK at scale 1;
+    * ties, zero gaps, g == score: coordinates in [0, 64), scores 3, 4 and
+      6 and g = 1 + qgap + tgap: equal values at equal te and qe (the slot
+      decides), candidates with a zero total gap, and with g == score;
+    * tgap at max_gap: targets on a 50-grid moved by 0 or 1, so tgap hits
+      max_gap - 1, max_gap (kept) and max_gap + 1 (dropped);
+    * mirrored coordinates: negative query coordinates, as the '-' strand
+      set's;
+    * past 2^40: colinear chains of records scored ~2^37;
+    * groups of 0 and 1: empty and single-record groups among others;
+    * many groups and a large one: 2,000 small groups next to one large
+      group, in one launch.
+    """
+    rng = np.random.default_rng(seed + 13)
+
+    def size(n, least=2):
+        return max(int(n * scale), least)
+
+    def group(qs, ln, ts, tlen, score):
+        order = np.argsort(qs, kind="stable")
+        qs, ln, ts, tlen, score = (np.asarray(a, dtype=np.int64)[order]
+                                   for a in (qs, ln, ts, tlen, score))
+        return qs, qs + ln, ts, ts + tlen, score
+
+    def dense(n, span, max_len, jitter, top, negative=False):
+        qs = rng.integers(0, span, n) - (span if negative else 0)
+        ln = rng.integers(0, max_len + 1, n)
+        ts = qs + (span if negative else 0) + rng.integers(0, jitter, n)
+        return group(qs, ln, ts, ln + rng.integers(0, 2, n),
+                     rng.integers(1, top, n))
+
+    cases = {}
+    cases[K6_EDGE_LABELS[0]] = ([dense(size(3000), size(2000), 4, 8, 3000)],
+                                (10, 1, 1000))
+    n = size(1000)
+    ln = rng.integers(0, 3, n)
+    qs = rng.integers(0, 64, n)
+    cases[K6_EDGE_LABELS[1]] = ([group(qs, ln, qs + rng.integers(0, 2, n),
+                                       ln, rng.choice([3, 4, 6], n))],
+                                (1, 1, 6))
+    n = size(800)
+    qs = 50 * rng.integers(0, 40, n)
+    ts = 50 * rng.integers(0, 40, n) + rng.integers(0, 2, n)
+    cases[K6_EDGE_LABELS[2]] = ([group(qs, np.full(n, 50), ts,
+                                       50 - rng.integers(0, 2, n),
+                                       np.full(n, 1000))], (10, 1, 100))
+    cases[K6_EDGE_LABELS[3]] = ([dense(size(1000), size(1500), 6, 30, 2000,
+                                       negative=True)], (10, 1, 400))
+    n = size(200, least=12)
+    i = np.arange(n)
+    cases[K6_EDGE_LABELS[4]] = ([group(1000 * i, np.full(n, 900),
+                                       1000 * i + 7, np.full(n, 900),
+                                       (1 << 37) + rng.integers(0, 1000, n))],
+                                (5000, 1, 1_000_000))
+    cases[K6_EDGE_LABELS[5]] = (
+        [dense(k, 30, 3, 4, 40) if k else group(*[[]] * 5)
+         for k in (0, 1, 0, 5, 1, 0, 3, 1)], (2, 1, 20))
+    small = [dense(k, 40, 3, 4, 40) if k else group(*[[]] * 5)
+             for k in rng.integers(0, 6, size(2000, least=20))]
+    big = dense(size(2000), size(3000), 4, 8, 3000)
+    cases[K6_EDGE_LABELS[6]] = (small[: len(small) // 2] + [big]
+                                + small[len(small) // 2:], (10, 1, 1000))
+    return cases
+
+
 # ------------------------------------------------------------------- helpers
 
 def gpu_line() -> str:
@@ -458,14 +589,48 @@ def k4_check(torch, devconf, native, runs, mismatch_device, pool, lens,
     return ext, table, counts, first_out, n_runs, err
 
 
+def k6_check(devconf, native, chain, chain_device, groups, costs,
+             plain=True):
+    """K6 on one launch's ``groups`` (one strand set, or an edge case):
+    (cs, pred) against the C DP group by group and, with ``plain``, against
+    its plain version on the card.  Returns (device arguments, the host
+    arguments, cs, max abs error); raises on any difference."""
+    dev = devconf.device()
+    host = chain.dp_arguments(groups, costs[2])
+    args = [devconf.upload(a, dev) for a in host]
+    cs, pred = chain_device.chain_dp_groups(*args, *costs)
+    err = 0
+    if plain:
+        cs_p, pred_p = chain_device.chain_dp_groups_plain(*args, *costs)
+        if len(cs):
+            err = max(int((cs - cs_p).abs().max()),
+                      int((pred - pred_p).abs().max()))
+        if not (cs.equal(cs_p) and pred.equal(pred_p)):
+            raise AssertionError("K6 != its plain version on the card")
+    want_cs, want_pred = [np.zeros(0, dtype=np.int64)], [
+        np.zeros(0, dtype=np.int64)]
+    for g, c0 in zip(groups, host[0][:-1]):
+        qe_order, lo, hi = chain._window_bounds(g[0], g[1], costs[2])
+        c, p = native.chain_dp(*g, qe_order, lo, hi, *costs)
+        want_cs.append(c)
+        want_pred.append(np.where(p >= 0, p + c0, -1))
+    if not (np.array_equal(devconf.to_host_i64(cs), np.concatenate(want_cs))
+            and np.array_equal(devconf.to_host_i64(pred),
+                               np.concatenate(want_pred))):
+        raise AssertionError("K6 != native.chain_dp")
+    return args, host, cs, err
+
+
 def run(torch) -> dict:
     from paffy_tpu_torch import devconf, kernels, native, phases
     from paffy_tpu_torch.cli import paffy_main
     from paffy_tpu_torch.core import pafio
-    from paffy_tpu_torch.ops import (compare, mismatch, mismatch_device,
-                                     runs, tile, tile_device)
+    from paffy_tpu_torch.ops import (chain, chain_device, compare, mismatch,
+                                     mismatch_device, runs, tile,
+                                     tile_device)
     from paffy_tpu_torch.ops.coverage import SATURATION
     from paffy_tpu_torch.ops.segments import build_m_column_batch
+    from paffy_tpu_torch.parallel import runner
 
     os.environ.pop("PAFFY_TPU_PLATFORM", None)
     dev = devconf.device()
@@ -663,6 +828,83 @@ def run(torch) -> dict:
         log(f"tile: {len(tt)} records, {n_iv} intervals, {n_bases} aligned "
             f"bases, levels {levels_seen.tolist()}")
 
+        log("== chain")
+        cpaf = os.path.join(d, "chain.paf")
+        with open(cpaf, "wb") as fh:
+            fh.write(chain_input(w))
+        expect_pin("chain.paf", cpaf)
+        drive("chain", ["chain", "-i", cpaf], os.path.join(d, "chained.paf"))
+        launched("chain", ("chain_dp",))
+        with open(cpaf, "rb") as fh:
+            tc = pafio.parse_paf_data(fh.read(), parse_cigars=False)
+        k6_full, k6_prefix = [], []
+        k6_err = k6_windows = k6_records = 0
+        for label, groups in zip("+-", chain.chain_groups(tc)):
+            args, host, cs, _ = k6_check(devconf, native, chain,
+                                         chain_device, groups, CHAIN_COSTS,
+                                         plain=False)
+            k6_full.append(args)
+            k6_windows += int(host[8].sum())
+            k6_records += len(host[1])
+            log(f"ok: K6 == C chain DP at full size, strand set {label}: "
+                f"groups of {np.diff(host[0]).tolist()} records, sum of "
+                f"window widths {int(host[8].sum())} (median "
+                f"{int(np.median(host[8]))}, max {int(host[8].max())}), "
+                f"largest chain score {int(cs.max())}")
+            prefix = [tuple(a[:K6_PREFIX] for a in g) for g in groups]
+            args, *_, err = k6_check(devconf, native, chain, chain_device,
+                                     prefix, CHAIN_COSTS)
+            k6_prefix.append(args)
+            k6_err = max(k6_err, err)
+            log(f"ok: K6 == plain on the card == C chain DP on the first "
+                f"{K6_PREFIX} records of each group, strand set {label}")
+        for label, (groups, costs) in k6_edge_cases().items():
+            _, host, _, err = k6_check(devconf, native, chain, chain_device,
+                                       groups, costs)
+            k6_err = max(k6_err, err)
+            log(f"ok: K6 == plain == C chain DP on its edge case {label} "
+                f"({len(groups)} groups, {int(host[0][-1])} records, "
+                f"widest window {int(host[8].max(initial=0))})")
+
+        log("== pipeline")
+        steps = (("add_mismatches", [fa]), ("chain", []), ("tile", []),
+                 ("trim", []))
+        src = cpaf
+        for cmd, extra in steps:
+            out = os.path.join(d, f"pipe_{cmd}.paf")
+            drive(f"pipeline {cmd}", [cmd, "-i", src, *extra], out)
+            src = out
+        launched("pipeline add_mismatches", ("build_ext", "run_counts",
+                                             "run_fill"))
+        launched("pipeline chain", ("chain_dp",))
+        launched("pipeline tile", ("tile_sweep",))
+        with open(cpaf, "rb") as fh:
+            tp = pafio.parse_paf_data(fh.read())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        phases.reset()
+        t0 = time.perf_counter()
+        piped = runner.run_pipeline(
+            tp, mismatch.SequencePool.from_fasta_files([fa]), n_shards=1)
+        torch.cuda.synchronize()
+        walls["run_pipeline"] = time.perf_counter() - t0
+        launches["run_pipeline"] = dict(kernels.LAUNCHES)
+        phase_split["run_pipeline"] = dict(phases.SECONDS)
+        peaks["run_pipeline"] = torch.cuda.max_memory_allocated() - held
+        rp = os.path.join(d, "run_pipeline.paf")
+        with open(rp, "wb") as fh:
+            fh.write(pafio.serialize_paf_bytes(piped))
+        expect_pin("run_pipeline", rp)
+        launched("run_pipeline", ("build_ext", "run_counts", "run_fill",
+                                  "chain_dp", "tile_sweep"))
+        log(f"launches during run_pipeline: {launches['run_pipeline']}")
+        log(f"run_pipeline: {len(tp)} records in "
+            f"{walls['run_pipeline']:.4f} s, "
+            f"{len(tp) / walls['run_pipeline']:.1f} records/s")
+        del piped, tp
+
         log("== timing")
 
         def k1():
@@ -684,6 +926,15 @@ def run(torch) -> dict:
         def k5_plain():
             arena.zero_()
             return tile_device.tile_sweep_plain(*k5_args, arena)
+
+        def k6(sets):
+            # the K6 work of one chain run: one launch per strand set
+            return lambda: [chain_device.chain_dp_groups(*a, *CHAIN_COSTS)
+                            for a in sets]
+
+        def k6_plain():
+            return [chain_device.chain_dp_groups_plain(*a, *CHAIN_COSTS)
+                    for a in k6_prefix]
         timed = {
             "piece_compare": (k1, lambda: compare.piece_match_counts_plain(
                 ext, table, len(t))),
@@ -693,6 +944,7 @@ def run(torch) -> dict:
             "run_fill": (k4f, lambda: runs.run_fill_plain(
                 ext, table4, first_out4, n_runs)),
             "tile_sweep": (k5, k5_plain),
+            "chain_dp": (k6(k6_full), k6_plain),
         }
         # bytes each kernel must move: K1 reads 2 bytes of ext per column
         # and 32 bytes of table per piece and writes 8 bytes per record; K2
@@ -700,7 +952,9 @@ def run(torch) -> dict:
         # per column and 40 of table per piece and writes 4 per piece; the
         # fill reads the same plus 8 bytes of first index per piece and
         # writes 9 bytes per run; K5 reads and writes 2 bytes of count per
-        # aligned base, reads 16 bytes per interval and 8 per record
+        # aligned base, reads 16 bytes per interval and 8 per record; K6
+        # reads 9 int64 per record (qs, ts, score, lo, w, pos; qe_s, te_s,
+        # idx_s) and writes 2 (cs, pred)
         nbytes = {
             "piece_compare": 2 * n_cols + table_np.nbytes + 8 * len(t),
             "build_ext": 3 * raw.numel(),
@@ -709,27 +963,46 @@ def run(torch) -> dict:
             "run_fill": (2 * n_cols + table4.numel() * 8 + 8 * n_pieces4
                          + 9 * n_runs),
             "tile_sweep": 4 * n_bases + 16 * n_iv + 8 * len(tt),
+            "chain_dp": 88 * k6_records,
         }
-        slow = {"tile_sweep"}
-        ms, row_ms, plain_ms, bound_ms = {}, {}, {}, {}
+        n_ops = {"chain_dp": K6_OPS_PER_CANDIDATE * k6_windows}
+        slow = {"tile_sweep", "chain_dp"}
+        ms, row_ms, in_a_row, plain_ms, bound_ms, bound_by = (
+            {}, {}, {}, {}, {}, {})
         for name, (fn, plain) in timed.items():
             ms[name] = cuda_ms(torch, fn, reps=5 if name in slow else 20)
+            # 20 in a row, unless 3 batches of 20 would pass 15 s
+            in_a_row[name] = (20 if ms[name] <= 250 else
+                              max(2, int(15_000 / (3 * ms[name]))))
             row_ms[name] = cuda_ms(torch, fn, reps=3 if name in slow else 7,
-                                   batch=20)
+                                   batch=in_a_row[name])
             plain_ms[name] = cuda_ms(torch, plain,
                                      reps=3 if name in slow else 5, warm=1)
-            bound_ms[name] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            by_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
+            by_ops = n_ops.get(name, 0) / INT32_OPS_PER_S * 1e3
+            bound_ms[name] = max(by_bytes, by_ops)
+            bound_by[name] = "operations" if by_ops > by_bytes else "bytes"
             log(f"{name}: {ms[name]:.4f} ms one call at a time "
-                f"({bound_ms[name] / ms[name]:.1%} of bound), "
-                f"{row_ms[name]:.4f} ms a call 20 in a row "
-                f"({bound_ms[name] / row_ms[name]:.1%}), plain "
-                f"{plain_ms[name]:.4f} ms; {nbytes[name]} bytes, bound "
-                f"{bound_ms[name]:.4f} ms at 3.35 TB/s")
+                f"({bound_ms[name] / ms[name]:.2%} of bound), "
+                f"{row_ms[name]:.4f} ms a call {in_a_row[name]} in a row "
+                f"({bound_ms[name] / row_ms[name]:.2%}), plain "
+                f"{plain_ms[name]:.4f} ms; {nbytes[name]} bytes "
+                f"({by_bytes:.4f} ms at 3.35 TB/s), {n_ops.get(name, 0)} "
+                f"integer operations ({by_ops:.4f} ms at "
+                f"{INT32_OPS_PER_S:.4g}/s); bound {bound_ms[name]:.4f} ms "
+                f"by {bound_by[name]}")
+        k6_prefix_ms = cuda_ms(torch, k6(k6_prefix), reps=5)
+        k6_plain_records = sum(int(a[1].numel()) for a in k6_prefix)
+        log(f"chain_dp on the prefix ({k6_plain_records} records, where "
+            f"plain_ms is taken): {k6_prefix_ms:.4f} ms; at full size "
+            f"{k6_records} records, {k6_windows} candidates in the windows, "
+            f"{K6_OPS_PER_CANDIDATE} integer operations each")
         log(f"K1 over {n_cols} columns, {n_pieces} pieces; K2 over "
             f"{raw.numel()} pool bytes; K4 over {n_cols} columns, "
             f"{n_pieces4} pieces, {n_runs} runs; K5 over {len(tt)} records, "
             f"{n_iv} intervals, {n_bases} aligned bases (the arena's memset "
-            f"of {2 * total} bytes is inside K5's timed window)")
+            f"of {2 * total} bytes is inside K5's timed window); K6 over "
+            f"{k6_records} records in {len(k6_full)} launches")
         for tag in walls:
             split = ", ".join(f"{k} {v:.4f}" for k, v in
                               phase_split[tag].items())
@@ -741,26 +1014,35 @@ def run(torch) -> dict:
         log(gpu)
 
     errs = {"piece_compare": k1_err, "build_ext": k2_err,
-            "run_counts": k4_err, "run_fill": k4_err, "tile_sweep": k5_err}
+            "run_counts": k4_err, "run_fill": k4_err, "tile_sweep": k5_err,
+            "chain_dp": k6_err}
     sources = {"piece_compare": "piece_compare.cu", "build_ext": "ext_pool.cu",
                "run_counts": "encode_runs.cu", "run_fill": "encode_runs.cu",
-               "tile_sweep": "tile_sweep.cu"}
+               "tile_sweep": "tile_sweep.cu", "chain_dp": "chain_dp.cu"}
     replaces = {"piece_compare": "paffy_tpu/ops/pallas_compare.py:161",
                 "build_ext": "paffy_tpu/ops/mismatch_device.py:47",
                 "run_counts": "paffy_tpu/ops/tiled.py:302",
                 "run_fill": "paffy_tpu/ops/tiled.py:307",
-                "tile_sweep": "paffy_tpu/ops/tile_device.py:23"}
+                "tile_sweep": "paffy_tpu/ops/tile_device.py:23",
+                "chain_dp": "paffy_tpu/ops/chain_device.py:26"}
     path_of = {"piece_compare": "view -s", "build_ext": "view -s",
                "run_counts": "add_mismatches", "run_fill": "add_mismatches",
-               "tile_sweep": "tile"}
+               "tile_sweep": "tile", "chain_dp": "chain"}
+    # K6's timed call is one chain run's two launches (one per strand
+    # set); its plain version runs on the prefix only
+    extra = {"chain_dp": {"launches_per_timed_call": len(k6_full),
+                          "plain_records": k6_plain_records,
+                          "ms_at_plain_records": k6_prefix_ms}}
     return {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"paffy_tpu_torch/csrc/{sources[name]}",
          "replaces": replaces[name],
          "launches": launches[path_of[name]][name],
          "max_abs_err": errs[name], "ms": ms[name],
-         "ms_20_in_a_row": row_ms[name], "plain_ms": plain_ms[name],
-         "bound_ms": bound_ms[name], "bound_by": "bytes", "library_ms": None}
+         "ms_in_a_row": row_ms[name], "in_a_row": in_a_row[name],
+         "plain_ms": plain_ms[name], "bound_ms": bound_ms[name],
+         "bound_by": bound_by[name], "library_ms": None,
+         **extra.get(name, {})}
         for name in timed]}
 
 

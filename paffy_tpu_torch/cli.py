@@ -1,7 +1,7 @@
 """``paffy-torch <cmd>``: the port's command line (counterpart of
-paffy_tpu/cli.py:41 ``paffy_main`` and :80 ``_run``).  ``add_mismatches``,
-``tile`` and ``view`` are ported; every other command exits 1 and says
-so."""
+paffy_tpu/cli.py:41 ``paffy_main`` and :80 ``_run``).
+``add_mismatches``, ``chain``, ``tile``, ``trim`` and ``view`` are
+ported; every other command exits 1 and says so."""
 
 from __future__ import annotations
 
@@ -19,7 +19,9 @@ def _usage(fh=sys.stderr):
 
 _COMMANDS = (
     ("add_mismatches", "Replace Ms with =/Xs in PAF cigar string"),
+    ("chain", "Chain together PAF alignments"),
     ("tile", "Give alignments levels, from lowest (best) to highest (worse)"),
+    ("trim", "Slice of lower identity tail alignments"),
     ("view", "Pretty print and extract stats about PAF alignments"),
 )
 
@@ -46,8 +48,12 @@ def paffy_main(argv=None) -> int:
     cmd, rest = argv[0], argv[1:]
     if cmd == "add_mismatches":
         from paffy_tpu_torch.commands.simple import add_mismatches_main as m
+    elif cmd == "chain":
+        from paffy_tpu_torch.commands.chain_tile_bed import chain_main as m
     elif cmd == "tile":
         from paffy_tpu_torch.commands.chain_tile_bed import tile_main as m
+    elif cmd == "trim":
+        from paffy_tpu_torch.commands.simple import trim_main as m
     elif cmd == "view":
         from paffy_tpu_torch.commands.view import main as m
     else:

@@ -17,6 +17,7 @@ import sys
 
 import numpy as np
 
+from paffy_tpu_torch import phases
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.utils.logging import (CommandTimer, log_info,
                                            set_log_level_from_string)
@@ -266,11 +267,12 @@ def stream_tables(args, batch_bytes: int | None = None,
         close_input_binary(fh)
 
 
-def read_table(args):
-    """The whole input as one PafTable."""
+def read_table(args, parse_cigars: bool = True):
+    """The whole input as one PafTable (raw cigars unless
+    ``parse_cigars``)."""
     fh = open_input_binary(args)
     try:
-        return pafio.parse_paf_data(fh.read())
+        return pafio.parse_paf_data(fh.read(), parse_cigars=parse_cigars)
     finally:
         close_input_binary(fh)
 
@@ -294,18 +296,29 @@ def write_check_prefix(out, e) -> None:
             e.table.take(np.arange(e.record_index))))
 
 
-def stream_transform(args, fn) -> None:
+def stream_transform(args, fn, parse_cigars: bool = True,
+                     validate_cigars: bool = False) -> None:
     """read -> fn(batch) -> write, batch by batch (the reference's streaming
-    loop, e.g. impl/paf_invert.c:84-89, a batch at a time)."""
+    loop, e.g. impl/paf_invert.c:84-89, a batch at a time); the flags are
+    ``stream_tables``'.  Phases: parse, transform, write."""
     out = open_output_binary(args)
+    tables = stream_tables(args, parse_cigars=parse_cigars,
+                           validate_cigars=validate_cigars)
     try:
-        for t in stream_tables(args):
-            try:
-                res = fn(t)
-            except pafio.PafCheckError as e:
-                write_check_prefix(out, e)
-                raise
+        while True:
+            with phases.timed("parse"):
+                t = next(tables, None)
+            if t is None:
+                break
+            with phases.timed("transform"):
+                try:
+                    res = fn(t)
+                except pafio.PafCheckError as e:
+                    write_check_prefix(out, e)
+                    raise
             if len(res):
-                out.write(pafio.serialize_paf_bytes(res))
+                with phases.timed("write"):
+                    out.write(pafio.serialize_paf_bytes(res))
     finally:
+        tables.close()
         close_output_binary(out)

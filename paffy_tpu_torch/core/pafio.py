@@ -1,6 +1,6 @@
 """PAF text <-> PafTable, and the paf_check sweep (counterpart of
 paffy_tpu/core/pafio.py: parse, ``serialize_paf_bytes``,
-``format_record``, ``paf_check``).
+``format_record``, ``paf_check`` :344-383).
 
 The behavioural contract is the reference parser (impl/paf.c:137-209: tab
 tokenizer, strand validation, tag dispatch on the two-character code,
@@ -159,13 +159,39 @@ class PafCheckError(ValueError):
         self.record_index = record_index
 
 
-def paf_check(t: PafTable) -> None:
+def _raw_span_first_bad(t: PafTable) -> tuple[int, int]:
+    """(record, code) of the first raw cigar whose spans differ from the
+    record's query/target lengths, or (-1, -1); the query check comes first
+    at a record, as in the reference (impl/paf.c:448-458)."""
+    st = native.cigar_stats_raw(t)
+    aligned = st[:, 0] + st[:, 1]          # M/= + X
+    qbad = t.has_cigar & ((aligned + st[:, 4]) != (t.qend - t.qstart))
+    tbad = t.has_cigar & ((aligned + st[:, 5]) != (t.tend - t.tstart))
+    either = np.flatnonzero(qbad | tbad)
+    if len(either) == 0:
+        return -1, -1
+    i = int(either[0])
+    return i, (4 if qbad[i] else 5)
+
+
+def paf_check(t: PafTable, check_raw_spans: bool = False) -> None:
     """Raise PafCheckError at the first record whose coordinates are out of
     bounds or whose cigar spans differ from its query/target lengths
-    (paf_check, impl/paf.c:427-461)."""
+    (paf_check, impl/paf.c:427-461).
+
+    A raw-cigar table skips the span checks, as the reference does for
+    unparsed cigars, unless ``check_raw_spans``: then the spans are summed
+    from the cg text, for a raw-reading command whose reference parses its
+    cigars and so checks them (trim, impl/paf_trim.c:116-124)."""
     if len(t) == 0:
         return
     bad, code = native.paf_check_batch(t)
+    if check_raw_spans and t.raw_cg is not None:
+        sbad, scode = _raw_span_first_bad(t)
+        # the first bad record wins; at one record the coordinate checks
+        # come before the span checks
+        if sbad >= 0 and (bad < 0 or sbad < bad):
+            bad, code = sbad, scode
     if bad >= 0:
         raise PafCheckError(f"{_CHECK_MESSAGES[code]}, {format_record(t, bad)}",
                             table=t, record_index=bad)

@@ -25,6 +25,12 @@ nothing, and returns ``cudaGetLastError()``; ``check`` raises on non-zero):
                          const i64* arena_off, const i64* run_off,
                          const i64* istart, const i64* iend, u16* arena,
                          i64 cap, i64* levels, cudaStream_t s)
+    int paffy_chain_dp(i64 n_groups, const i64* goff, const i64* qs,
+                       const i64* ts, const i64* score, const i64* qe_s,
+                       const i64* te_s, const i64* idx_s, const i64* lo,
+                       const i64* w, const i64* pos, i64 gap_open,
+                       i64 gap_extend, i64 max_gap, i64* cs_sorted,
+                       i64* cs, i64* pred, cudaStream_t s)
     const char* paffy_error_string(int code)
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds one
@@ -49,7 +55,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"piece_compare": 0, "build_ext": 0, "run_counts": 0,
-            "run_fill": 0, "tile_sweep": 0}
+            "run_fill": 0, "tile_sweep": 0, "chain_dp": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -154,6 +160,9 @@ def load() -> ctypes.CDLL:
             lib.paffy_tile_sweep.argtypes = [i64, vp, vp, vp, vp, vp, vp, vp,
                                              i64, vp, vp]
             lib.paffy_tile_sweep.restype = ctypes.c_int
+            lib.paffy_chain_dp.argtypes = [i64, *[vp] * 10, i64, i64, i64,
+                                           vp, vp, vp, vp]
+            lib.paffy_chain_dp.restype = ctypes.c_int
             lib.paffy_error_string.argtypes = [ctypes.c_int]
             lib.paffy_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -135,6 +135,14 @@ _SIGNATURES = (
     ("encode_serialize_fill", _LL, _ENC_COMMON + [_I64P, _CP, _LL]),
     ("tile_sweep", None, [_LL, _I64P, _I64P, _I64P, _I64P, _I64P, _U16P, _LL,
                           _I64P]),
+    ("chain_dp", None, [_LL, _I64P, _I64P, _I64P, _I64P, _I64P, _I64P, _I64P,
+                        _I64P, _LL, _LL, _LL, _I64P, _I64P]),
+    ("trim_tails_apply", None, [_LL, _I64P, _U8P, _I64P, _U8P, ctypes.c_float,
+                                ctypes.c_float, _I64P, _I64P, _I64P, _I64P,
+                                _I64P, _I64P, _LL]),
+    ("trim_tails_raw", None, [_LL, _CP, _I64P, _I64P, _U8P, ctypes.c_float,
+                              ctypes.c_float, _I64P, _I64P, _I64P, _I64P,
+                              _I64P, _I64P, _LL]),
 )
 
 
@@ -697,3 +705,56 @@ def tile_sweep(order, arena_off, run_off, istart, iend, arena: np.ndarray,
                    _p_i64(_i64(run_off)), _p_i64(_i64(istart)),
                    _p_i64(_i64(iend)), arena.ctypes.data_as(_U16P),
                    saturation, _p_i64(levels))
+
+
+def chain_dp(qs, qe, ts, te, score, qe_order, lo, hi, gap_open: int,
+             gap_extend: int, max_gap: int):
+    """(chain score, predecessor) of each record of one chain group in
+    processing order, by the windowed DP in C (impl/chaining.c:150-214;
+    ``qe_order``, ``lo``, ``hi`` from ops/chain._window_bounds); a
+    reference for K6."""
+    lib = get_lib()
+    n = len(qs)
+    cs = np.empty(n, dtype=np.int64)
+    pred = np.empty(n, dtype=np.int64)
+    lib.chain_dp(n, *(_p_i64(_i64(a)) for a in (qs, qe, ts, te, score,
+                                                qe_order, lo, hi)),
+                 gap_open, gap_extend, max_gap, _p_i64(cs), _p_i64(pred))
+    return cs, pred
+
+
+def _trim_outputs(n):
+    return tuple(np.empty(n, dtype=np.int64) for _ in range(6))
+
+
+def trim_tails_apply(off, ops, lens, strand, score_fraction, max_fraction,
+                     n_threads: int | None = None):
+    """Both passes of the unreliable-tail trim (identity, decision and
+    apply; impl/paf.c:811-953) over a parsed CSR store, threaded:
+    (keep_a, keep_b, dq1, dt1, dq2, dt2), the kept op range of each record
+    and the query/target bases each pass dropped."""
+    lib = get_lib()
+    n = len(off) - 1
+    out = _trim_outputs(n)
+    lib.trim_tails_apply(n, _p_i64(_i64(off)), _p_u8(_u8(ops)),
+                         _p_i64(_i64(lens)), _p_u8(_u8(strand)),
+                         score_fraction, max_fraction,
+                         *(_p_i64(a) for a in out),
+                         _default_threads(n_threads))
+    return out
+
+
+def trim_tails_raw(t, score_fraction, max_fraction,
+                   n_threads: int | None = None):
+    """``trim_tails_apply`` over a raw-cigar table, tokenizing its cg text:
+    (cg_a, cg_n, dq1, dt1, dq2, dt2), each record's kept cigar as a byte
+    range of the input buffer and the bases each pass dropped."""
+    lib = get_lib()
+    raw_buf, cg_start, cg_len = t.raw_cg
+    out = _trim_outputs(len(cg_start))
+    lib.trim_tails_raw(len(cg_start), raw_buf, _p_i64(_i64(cg_start)),
+                       _p_i64(_i64(cg_len)), _p_u8(_u8(t.strand)),
+                       score_fraction, max_fraction,
+                       *(_p_i64(a) for a in out),
+                       _default_threads(n_threads))
+    return out

@@ -1,8 +1,9 @@
-"""Wall-clock seconds per phase of the port's ``view`` path, summed over
-the run: fasta (FASTA read into the host pool), pool upload, K2, parse,
-batch (M-run column batch), pieces (piece table), upload (piece table to
-the device), kernel (K1 and the counts' readback) and format (stats, stat
-lines, output).
+"""Wall-clock seconds per phase of a command of the port, summed over the
+run.  ``view``'s, for example: fasta (FASTA read into the host pool), pool
+upload, K2, parse, batch (M-run column batch), pieces (piece table), upload
+(piece table to the device), kernel (K1 and the counts' readback) and
+format (stats, stat lines, output); ``chain``'s: parse, window, K6 (with
+its upload and readback), extract and write.
 
 Device phases end with a synchronize, so each phase holds its own device
 work; ``reset`` before a run and read ``SECONDS`` after it.

@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on a GPU, at
 small shapes and at the edge cases of K1 (chip_smoke.k1_edge_cases, also
-held against the C loop on the CPU by tests/test_torch_compare.py) and K4
-(chip_smoke.k4_edge_cases); K4 and K5 also against the C passes.
+held against the C loop on the CPU by tests/test_torch_compare.py), K4
+(chip_smoke.k4_edge_cases) and K6 (chip_smoke.k6_edge_cases); K4, K5 and
+K6 also against the C passes, and a whole chaining on the card against
+the same on the CPU.
 
 Needs a CUDA device and nvcc; skips without a device.  This file imports no
 JAX and nothing of paffy_tpu, so it also runs where JAX is absent:
@@ -22,6 +24,7 @@ import chip_smoke  # noqa: E402
 from paffy_tpu_torch import devconf, kernels, native  # noqa: E402
 from paffy_tpu_torch.core.pafio import parse_paf_text  # noqa: E402
 from paffy_tpu_torch.ops import compare, mismatch_device  # noqa: E402
+from paffy_tpu_torch.ops import chain, chain_device  # noqa: E402
 from paffy_tpu_torch.ops import runs, tile_device  # noqa: E402
 from paffy_tpu_torch.ops import mismatch as port_mm  # noqa: E402
 from paffy_tpu_torch.ops.mismatch_device import (build_ext_pool,  # noqa: E402
@@ -266,3 +269,42 @@ def test_run_and_tile_wrappers_refuse_bad_inputs(cuda):
         tile_device.tile_sweep(idx.int(), idx, two, idx, idx, arena)
     with pytest.raises(ValueError):
         tile_device.tile_sweep(idx, idx, two, idx, idx, arena, cap=0)
+
+
+@pytest.mark.parametrize("label", chip_smoke.K6_EDGE_LABELS)
+def test_chain_kernel_edge_cases(cuda, label):
+    groups, costs = chip_smoke.k6_edge_cases()[label]
+    before = kernels.LAUNCHES["chain_dp"]
+    *_, err = chip_smoke.k6_check(devconf, native, chain, chain_device,
+                                  groups, costs)
+    torch.cuda.synchronize()
+    assert err == 0 and kernels.LAUNCHES["chain_dp"] == before + 1
+
+
+def test_chain_on_cuda_equals_cpu(cuda, monkeypatch, tmp_path):
+    # the whole chaining of a small chip_smoke synthesis, shattered
+    _, _, w = chip_smoke.build_files(str(tmp_path), native, seq_len=400_000,
+                                     n_records=12, m_columns=300_000)
+    tab = parse_paf_text(chip_smoke.chain_input(w, seq_len=400_000).decode())
+    monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
+    before = kernels.LAUNCHES["chain_dp"]
+    gpu, gpu_perm = chain.paf_chain_order(tab)
+    assert kernels.LAUNCHES["chain_dp"] == before + 2     # one per strand set
+    monkeypatch.setenv("PAFFY_TPU_PLATFORM", "cpu")
+    cpu, cpu_perm = chain.paf_chain_order(tab)
+    np.testing.assert_array_equal(gpu_perm, cpu_perm)
+    np.testing.assert_array_equal(gpu.chain_id, cpu.chain_id)
+    np.testing.assert_array_equal(gpu.chain_score, cpu.chain_score)
+
+
+def test_chain_wrapper_refuses_bad_inputs(cuda):
+    groups, costs = chip_smoke.k6_edge_cases(scale=0.01)["wide windows"]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in chain.dp_arguments(groups, costs[2])]
+    with pytest.raises(ValueError):
+        chain_device.chain_dp_groups(args[0].cpu(), *args[1:], *costs)
+    with pytest.raises(ValueError):
+        chain_device.chain_dp_groups(*args[:4], args[4].int(), *args[5:],
+                                     *costs)
+    with pytest.raises(ValueError):
+        chain_device.chain_dp_groups(*args[:9], args[9][:-1], *costs)

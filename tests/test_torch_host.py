@@ -1,5 +1,6 @@
-"""The port's own host layer (paffy_tpu_torch.native, core, ops.segments,
-ops.transforms, ops.mismatch's pool, commands.common) against paffy_tpu's,
+"""The port's own host layer (paffy_tpu_torch.native, core with segsum,
+ops.segments, ops.transforms, ops.tailtrim, ops.mismatch's pool,
+commands.common) against paffy_tpu's,
 on the same seeded inputs: equal arrays, equal bytes.  Also chip_smoke.py's
 synthesis at a small scale through both packages' native libraries.
 
@@ -269,6 +270,122 @@ def test_first_missing_seq_matches_paffy_tpu():
         assert port.first_missing_seq(tq) == _first_missing_seq(ref, rq)
 
 
+@pytest.mark.parametrize("seed", [17, 18])
+def test_segsum(seed):
+    from paffy_tpu.core import segsum as ref_segsum
+    from paffy_tpu_torch.core import segsum
+    rng = np.random.default_rng(seed)
+    off = np.concatenate([[0], np.cumsum(rng.integers(0, 4, 30))])
+    vals = rng.integers(-50, 50, int(off[-1]))
+    for v in (vals, vals > 0, vals[:0]):
+        o = off if len(v) else np.zeros(5, dtype=np.int64)
+        got = segsum.segment_sums_by_offsets(v, o)
+        want = ref_segsum.segment_sums_by_offsets(v, o)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(segsum.segment_ids_from_offsets(off),
+                                  ref_segsum.segment_ids_from_offsets(off))
+
+
+@pytest.mark.parametrize("pct", [0.0, 0.15, 0.5, 1.0])
+def test_fixed_trim_transforms(pct):
+    data = (workload_text(19) + TAGGED.replace("03M", "3M")).encode()
+    t, r = pafio.parse_paf_data(data), ref_pafio.parse_paf_data(data)
+    assert_tables_equal(transforms.trim_end_fraction(t, pct),
+                        ref_transforms.trim_end_fraction(r, pct))
+    np.testing.assert_array_equal(transforms.aligned_base_counts(t),
+                                  ref_transforms.aligned_base_counts(r))
+    for a, b in zip(transforms._reverse_csr(t.ops, t.lens, t.off),
+                    ref_transforms._reverse_csr(r.ops, r.lens, r.off)):
+        np.testing.assert_array_equal(a, b)
+    for k, v in ref_transforms.stats_calc(r).items():
+        np.testing.assert_array_equal(transforms.stats_calc(t)[k], v)
+    with pytest.raises(AssertionError):
+        transforms.trim_end_fraction(t, 1.5)
+
+
+@pytest.mark.parametrize("mode", ["parsed", "raw"])
+def test_tailtrim_and_its_native_passes(mode):
+    from paffy_tpu.ops import tailtrim as ref_tailtrim
+    from paffy_tpu_torch.ops import tailtrim
+    data = (workload_text(20) + TAGGED.replace("03M", "3M")).encode()
+    kw = dict(parse_cigars=False) if mode == "raw" else {}
+    t, r = pafio.parse_paf_data(data, **kw), ref_pafio.parse_paf_data(data, **kw)
+    for fr in ((0.05, 1.0), (0.4, 0.5)):
+        assert_tables_equal(tailtrim.trim_unreliable_tails(t, *fr),
+                            ref_tailtrim.trim_unreliable_tails(r, *fr))
+        if mode == "raw":
+            got = native.trim_tails_raw(t, *fr)
+            want = ref_native.trim_tails_raw(r, *fr)
+        else:
+            got = native.trim_tails_apply(t.off, t.ops, t.lens, t.strand, *fr)
+            want = ref_native.trim_tails_apply(r.off, r.ops, r.lens, r.strand,
+                                               *fr)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_native_chain_dp():
+    from paffy_tpu.ops.chain import _window_bounds
+    rng = np.random.default_rng(21)
+    n = 300
+    qs = np.sort(rng.integers(0, 3000, n))
+    qe = qs + rng.integers(1, 40, n)
+    ts = qs + rng.integers(-20, 20, n)
+    te = ts + rng.integers(1, 40, n)
+    score = rng.integers(1, 500, n)
+    win = _window_bounds(qs, qe, 200)
+    got = native.chain_dp(qs, qe, ts, te, score, *win, 50, 1, 200)
+    want = ref_native.chain_dp(qs, qe, ts, te, score, *win, 50, 1, 200)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert (got[1] >= 0).any()
+
+
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+def test_paf_check_of_raw_spans(case):
+    text = workload_text(8) + CHECK_CASES[case]
+    outcomes = []
+    for mod in (pafio, ref_pafio):
+        t = mod.parse_paf_data(text.encode(), parse_cigars=False)
+        for spans in (False, True):
+            try:
+                mod.paf_check(t, check_raw_spans=spans)
+                outcomes.append(None)
+            except mod.PafCheckError as e:
+                outcomes.append((str(e), e.record_index))
+    assert outcomes[:2] == outcomes[2:]
+    assert (outcomes[1] is None) == (case == "clean")
+    assert (outcomes[0] is None) == (case in ("clean", "qspan", "tspan"))
+
+
+def test_read_table_and_stream_transform_flags(tmp_path):
+    import argparse
+    from paffy_tpu.commands import common as ref_common
+    from paffy_tpu_torch.commands import common
+    path = tmp_path / "in.paf"
+    path.write_bytes((workload_text(22) + TAGGED).encode())
+    for parse in (True, False):
+        args = argparse.Namespace(inputFile=str(path), outputFile=None)
+        assert_tables_equal(common.read_table(args, parse_cigars=parse),
+                            ref_common.read_table(args, parse_cigars=parse))
+    for kw in ({}, dict(parse_cigars=False),
+               dict(parse_cigars=False, validate_cigars=True)):
+        seen = {}
+        for tag, mod in (("port", common), ("ref", ref_common)):
+            out = tmp_path / f"{tag}.paf"
+            args = argparse.Namespace(inputFile=str(path),
+                                      outputFile=str(out))
+            batches = []
+
+            def fn(t, batches=batches):
+                batches.append(t.raw_cg is not None)
+                return t
+            mod.stream_transform(args, fn, **kw)
+            seen[tag] = (batches, out.read_bytes())
+        assert seen["port"] == seen["ref"]
+
+
 def smoke_files(d, ref: bool, **sizes):
     """chip_smoke.py's synthesis through paffy_tpu's native library (ref)
     or the port's."""
@@ -295,14 +412,50 @@ def test_smoke_synthesis_byte_equal_and_view(tmp_path):
         assert outs[0] == outs[1]
 
 
+def test_smoke_chain_input_is_paffy_tpus_shatter(tmp_path):
+    fa, paf, w = smoke_files(tmp_path, True, **SMALL)
+    out = tmp_path / "shattered.paf"
+    assert ref_main(["shatter", "-i", paf, "-o", str(out)]) == 0
+    got = chip_smoke.chain_input(w, seq_len=SMALL["seq_len"])
+    assert got == out.read_bytes()
+    assert got.count(b"\n") == len(w["runs"]) and b"\t-\t" in got
+
+
+def pipeline_pins(d, fa, chain_paf) -> dict:
+    """paffy_tpu's chain on chip_smoke.chain_input, its add_mismatches,
+    chain, tile and trim one after another from that input, and its
+    run_pipeline (one shard) on it, as digests (its host routes)."""
+    from paffy_tpu.core.fasta import read_fasta
+    from paffy_tpu.parallel.runner import run_pipeline
+    pins = {}
+    out = os.path.join(d, "chained.paf")
+    assert ref_main(["chain", "-i", chain_paf, "-o", out]) == 0
+    pins["chain"] = chip_smoke.sha256_file(out)
+    src = chain_paf
+    for cmd, extra in (("add_mismatches", [fa]), ("chain", []), ("tile", []),
+                       ("trim", [])):
+        out = os.path.join(d, f"pipe_{cmd}.paf")
+        assert ref_main([cmd, "-i", src, *extra, "-o", out]) == 0
+        pins[f"pipeline {cmd}"] = chip_smoke.sha256_file(out)
+        src = out
+    t = ref_pafio.parse_paf_data(pathlib.Path(chain_paf).read_bytes())
+    out = os.path.join(d, "run_pipeline.paf")
+    pathlib.Path(out).write_bytes(bytes(ref_pafio.serialize_paf_bytes(
+        run_pipeline(t, read_fasta(fa), n_shards=1))))
+    pins["run_pipeline"] = chip_smoke.sha256_file(out)
+    return pins
+
+
 def make_pins(d) -> dict:
     """The digests chip_smoke.py pins: its chromosome-scale synthesis
     through paffy_tpu's native library; paffy_tpu's view -s and
     view -s -t, add_mismatches, and add_mismatches -a on that output, on
     those files (its host routes); chip_smoke.tile_input made from that
-    output, and paffy_tpu's tile on it."""
+    output, and paffy_tpu's tile on it; paffy_tpu's shatter of in.paf
+    (which chip_smoke.chain_input writes itself) and pipeline_pins on
+    it."""
     os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
-    fa, paf, _ = smoke_files(d, True)
+    fa, paf, w = smoke_files(d, True)
     pins = {"seqs.fa": chip_smoke.sha256_file(fa),
             "in.paf": chip_smoke.sha256_file(paf)}
     for tag, flags in (("view -s", ["-s"]), ("view -s -t", ["-s", "-t"])):
@@ -322,13 +475,20 @@ def make_pins(d) -> dict:
             pins["tile.paf"] = chip_smoke.sha256_file(tpaf)
         assert ref_main([*argv, "-o", out]) == 0
         pins[tag] = chip_smoke.sha256_file(out)
+    cpaf = os.path.join(d, "chain.paf")
+    assert ref_main(["shatter", "-i", paf, "-o", cpaf]) == 0
+    assert pathlib.Path(cpaf).read_bytes() == chip_smoke.chain_input(w)
+    pins["chain.paf"] = chip_smoke.sha256_file(cpaf)
+    pins.update(pipeline_pins(d, fa, cpaf))
     return pins
 
 
 def test_pins_are_digests():
-    assert set(chip_smoke.PINS) == {"seqs.fa", "in.paf", "view -s",
-                                    "view -s -t", "add_mismatches",
-                                    "add_mismatches -a", "tile.paf", "tile"}
+    assert set(chip_smoke.PINS) == {
+        "seqs.fa", "in.paf", "view -s", "view -s -t", "add_mismatches",
+        "add_mismatches -a", "tile.paf", "tile", "chain.paf", "chain",
+        "pipeline add_mismatches", "pipeline chain", "pipeline tile",
+        "pipeline trim", "run_pipeline"}
     for v in chip_smoke.PINS.values():
         assert len(v) == 64 and int(v, 16) >= 0
     assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()

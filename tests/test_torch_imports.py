@@ -1,7 +1,7 @@
 """paffy_tpu_torch stands alone: an AST scan of every file of the port (and
 of chip_smoke.py and bin/paffy-torch) finds no import of JAX or of
 paffy_tpu, in any body, and no string that runs a paffy_tpu module in a
-subprocess; and one run of the port's view in a fresh interpreter ends
+subprocess; and a run of each ported command in a fresh interpreter ends
 with neither ``jax`` nor any ``paffy_tpu`` module loaded."""
 
 import ast
@@ -156,7 +156,12 @@ def test_port_view_runs_without_loading_jax(tmp_path):
     (["add_mismatches", "-i", "in.paf", "s.fa"], "cg:Z:4=1X5="),
     (["add_mismatches", "-a", "-i", "in.paf"], "cg:Z:10M"),
     (["tile", "-i", "in.paf"], "tl:i:1"),
-], ids=["add_mismatches", "add_mismatches-a", "tile"])
+    (["chain", "-i", "in.paf"], "cn:i:0\ts1:i:0\tcg:Z:10M"),
+    (["trim", "-i", "in.paf"], "\t60\tAS:i:0\tcg:Z:10M"),
+    (["trim", "-f", "-t", "0.2", "-i", "in.paf"],
+     "\t1\t9\t+\tt\t10\t1\t9\t10\t10\t60\tAS:i:0\tcg:Z:8M"),
+], ids=["add_mismatches", "add_mismatches-a", "tile", "chain", "trim",
+        "trim-f"])
 def test_port_commands_run_without_loading_jax(tmp_path, argv, first):
     (tmp_path / "s.fa").write_text(">q\nACGTACGTAC\n>t\nACGTTCGTAC\n")
     (tmp_path / "in.paf").write_text(

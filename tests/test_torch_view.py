@@ -114,6 +114,6 @@ def test_device_rule(monkeypatch):
 
 
 def test_unported_commands_exit_1(capsys):
-    assert port_main(["chain", "-i", "x.paf"]) == 1
+    assert port_main(["shatter", "-i", "x.paf"]) == 1
     assert "not ported" in capsys.readouterr().err
     assert port_main([]) == 0
