@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s``,
-``add_mismatches``, ``tile``, ``chain`` and ``trim``, and the fused
-``add_mismatches | chain | tile | trim`` pipeline, at chromosome scale
-through the port's CUDA kernels.
+``add_mismatches``, ``tile``, ``chain`` and ``trim``, the fused
+``add_mismatches | chain | tile | trim`` pipeline, the (data, seq) mesh
+path and the multi-process runner, at chromosome scale through the port's
+CUDA kernels.
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -54,7 +55,25 @@ Phases (any failure exits non-zero and prints no result line):
               them, each pinned and each launching its kernels; then
               ``run_pipeline`` in process on the same table with a pool
               from the same FASTA, pinned, with its records per second.
-10. timing -- every kernel and its plain version with CUDA events (median
+10. mesh   -- column_counts_multichip on in.paf over a (1,1) mesh of the
+              first card, then over 8 slots filled round robin from the
+              cards present as (4,2), (8,1) and (2,4) (all cuda:0 on one
+              card; the number of distinct cards is printed): its counts
+              must equal K1's from the counts phase and the C loop, its
+              totals their sums, on every shape, and each run must launch
+              K7 once per slot that holds pieces.  K7 against its plain
+              version on the card at full size and on k1_edge_cases, each
+              table cut into K7_SEQ_RANGES seq ranges (a record's pieces
+              then lie in two ranges).  sharded_pipeline_stage and
+              run_pipeline on the (4,2) slots on chain_input: pinned (the
+              "run_pipeline" pin), launching K6 and K5.
+11. multiprocess -- two processes of ``python -m
+              paffy_tpu_torch.parallel.distributed chain.paf seqs.fa out.paf
+              --shards 2`` in a gloo group on a free localhost port, each
+              with a time limit: the output is pinned ("run_pipeline"; one
+              contig group, so process 1 runs no shard but joins the
+              barriers).
+12. timing -- every kernel and its plain version with CUDA events (median
               after warm-up), each beside its bound: the larger of the
               bytes it must move over 3.35 TB/s and, for K6, its integer
               operations over the card's INT32 rate; each command's wall
@@ -68,7 +87,9 @@ Phases (any failure exits non-zero and prints no result line):
               call is one chain run's launches, one per strand set; its
               plain version is timed on the prefix.  A command's peak
               device memory is counted above the tensors this script
-              already held.
+              already held.  K7's ``ms`` is the (1,1) mesh's one launch
+              over all pieces; ``ms_8_slots_in_a_row`` is the time of the
+              (4,2) mesh's 8 launches, 20 times in a row, per 8.
 
 Integer and byte outputs are compared exactly.  The line before the last
 is the kernels' JSON record; the last line is
@@ -81,6 +102,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -144,6 +166,10 @@ K6_BLOCK = 256                 # threads of a K6 block (csrc/chain_dp.cu)
 # rate: 132 SMs x 64 INT32 lanes x 1.98 GHz (NVIDIA Hopper white paper)
 K6_OPS_PER_CANDIDATE = 30
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# K7's checks cut each piece table into this many seq ranges
+K7_SEQ_RANGES = 3
+MESH_SHAPES = ((1, 1), (4, 2), (8, 1), (2, 4))
+MP_TIMEOUT_S = 300             # each multiprocess run's time limit
 K6_EDGE_LABELS = ("wide windows", "ties, zero gaps, g == score",
                   "tgap at max_gap", "mirrored coordinates", "past 2^40",
                   "groups of 0 and 1", "many groups and a large one")
@@ -534,9 +560,45 @@ def expect_equal(what, a, b):
     log(f"ok: {what}")
 
 
-def expect_pin(what, path):
+def expect_pin(what, path, pin=None):
+    """The digest of ``path`` is PINS[pin or what]."""
     expect_equal(f"SHA-256 of {what} is the pinned one", sha256_file(path),
-                 PINS[what])
+                 PINS[pin or what])
+
+
+def run_world(argv, n_proc, timeout, log_dir):
+    """``python -m paffy_tpu_torch.parallel.distributed *argv`` as
+    ``n_proc`` processes of one gloo group on a free localhost port; raise
+    unless every one exits 0 within ``timeout`` seconds in all.  Every
+    process is killed on the way out if it still runs."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs, logs = [], [os.path.join(log_dir, f"proc{i}.log")
+                       for i in range(n_proc)]
+    try:
+        for i in range(n_proc):
+            env = dict(os.environ, PAFFY_TPU_COORDINATOR=f"localhost:{port}",
+                       PAFFY_TPU_NUM_PROCESSES=str(n_proc),
+                       PAFFY_TPU_PROCESS_ID=str(i))
+            with open(logs[i], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "paffy_tpu_torch.parallel.distributed", *argv],
+                    cwd=REPO, env=env, stdout=fh, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for i, (p, path) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            with open(path) as fh:
+                raise AssertionError(f"process {i} of {n_proc} exited with "
+                                     f"{p.returncode}:\n{fh.read()[-3000:]}")
 
 
 # ---------------------------------------------------------------------- main
@@ -621,16 +683,36 @@ def k6_check(devconf, native, chain, chain_device, groups, costs,
     return args, host, cs, err
 
 
+def k7_check(torch, devconf, group_stats, pipeline, ext, table_np, n_slots):
+    """K7 over one piece table cut into K7_SEQ_RANGES seq ranges, every
+    range added into the same outputs, against its plain version on the
+    card.  Returns (match, cols, totals, whether some slot's pieces lie in
+    two ranges, max abs error); raises on any difference."""
+    outs = [[torch.zeros(k, dtype=torch.int64, device=ext.device)
+             for k in (n_slots, n_slots, 2)] for _ in range(2)]
+    straddles = False
+    for lo, hi in pipeline.seq_ranges(table_np[2], K7_SEQ_RANGES):
+        part = devconf.upload(table_np[:, lo:hi], ext.device)
+        group_stats.group_stats(ext, part, *outs[0])
+        group_stats.group_stats_plain(ext, part, *outs[1])
+        straddles |= bool(0 < lo < hi and
+                          table_np[3, lo - 1] == table_np[3, lo])
+    err = max(int((a - b).abs().max()) for a, b in zip(*outs))
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError("K7 != its plain version on the card")
+    return (*(devconf.to_host_i64(o) for o in outs[0]), straddles, err)
+
+
 def run(torch) -> dict:
     from paffy_tpu_torch import devconf, kernels, native, phases
     from paffy_tpu_torch.cli import paffy_main
     from paffy_tpu_torch.core import pafio
-    from paffy_tpu_torch.ops import (chain, chain_device, compare, mismatch,
-                                     mismatch_device, runs, tile,
-                                     tile_device)
+    from paffy_tpu_torch.ops import (chain, chain_device, compare,
+                                     group_stats, mismatch, mismatch_device,
+                                     runs, tile, tile_device)
     from paffy_tpu_torch.ops.coverage import SATURATION
     from paffy_tpu_torch.ops.segments import build_m_column_batch
-    from paffy_tpu_torch.parallel import runner
+    from paffy_tpu_torch.parallel import pipeline, runner
 
     os.environ.pop("PAFFY_TPU_PLATFORM", None)
     dev = devconf.device()
@@ -654,21 +736,28 @@ def run(torch) -> dict:
 
     walls, phase_split, launches, peaks = {}, {}, {}, {}
 
-    def drive(tag, argv, out):
-        """One command of the port, its launch counts set to 0 just before
-        and read just after; its output's digest must be the pinned one."""
+    def measure(tag, fn):
+        """``fn()`` in process, its launch counts set to 0 just before and
+        read just after; its wall, phases and peak device memory (above
+        this script's own tensors) are kept under ``tag``."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()     # this script's own tensors
+        held = torch.cuda.memory_allocated()
         kernels.reset_launch_counts()
         phases.reset()
         t0 = time.perf_counter()
-        rc = paffy_main([*argv, "-o", out])
+        out = fn()
         torch.cuda.synchronize()
         walls[tag] = time.perf_counter() - t0
         launches[tag] = dict(kernels.LAUNCHES)
         phase_split[tag] = dict(phases.SECONDS)
         peaks[tag] = torch.cuda.max_memory_allocated() - held
+        return out
+
+    def drive(tag, argv, out):
+        """One command of the port through ``measure``; its output's
+        digest must be the pinned one."""
+        rc = measure(tag, lambda: paffy_main([*argv, "-o", out]))
         expect_equal(f"port {tag} exit code", rc, 0)
         expect_pin(tag, out)
         log(f"launches during the port's {tag}: {launches[tag]}")
@@ -880,19 +969,8 @@ def run(torch) -> dict:
         launched("pipeline tile", ("tile_sweep",))
         with open(cpaf, "rb") as fh:
             tp = pafio.parse_paf_data(fh.read())
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        held = torch.cuda.memory_allocated()
-        kernels.reset_launch_counts()
-        phases.reset()
-        t0 = time.perf_counter()
-        piped = runner.run_pipeline(
-            tp, mismatch.SequencePool.from_fasta_files([fa]), n_shards=1)
-        torch.cuda.synchronize()
-        walls["run_pipeline"] = time.perf_counter() - t0
-        launches["run_pipeline"] = dict(kernels.LAUNCHES)
-        phase_split["run_pipeline"] = dict(phases.SECONDS)
-        peaks["run_pipeline"] = torch.cuda.max_memory_allocated() - held
+        piped = measure("run_pipeline", lambda: runner.run_pipeline(
+            tp, mismatch.SequencePool.from_fasta_files([fa]), n_shards=1))
         rp = os.path.join(d, "run_pipeline.paf")
         with open(rp, "wb") as fh:
             fh.write(pafio.serialize_paf_bytes(piped))
@@ -903,7 +981,94 @@ def run(torch) -> dict:
         log(f"run_pipeline: {len(tp)} records in "
             f"{walls['run_pipeline']:.4f} s, "
             f"{len(tp) / walls['run_pipeline']:.1f} records/s")
-        del piped, tp
+        del piped
+
+        log("== mesh")
+        cards = devconf.devices()
+        log(f"distinct cards: {len(cards)} "
+            f"{[torch.cuda.get_device_name(c) for c in cards]}")
+        slots = [cards[i % len(cards)] for i in range(8)]
+        for dp, sp in MESH_SHAPES:
+            tag = f"column_counts_multichip {dp}x{sp}"
+            mesh = pipeline.make_mesh(slots[: dp * sp], dp=dp, sp=sp)
+            with_pieces = sum(
+                hi > lo for tab in pipeline.shard_records(t, pool, dp).tables
+                for lo, hi in pipeline.seq_ranges(tab[2], sp))
+            m_mesh, x_mesh, tot_mesh = measure(
+                tag, lambda: pipeline.column_counts_multichip(t, pool, mesh))
+            expect_equal(f"{tag} on {mesh.devices}: matches and mismatches "
+                         f"== K1's == C loop",
+                         np.array_equal(m_mesh, m_port)
+                         and np.array_equal(x_mesh, x_port)
+                         and np.array_equal(m_mesh, m_c)
+                         and np.array_equal(x_mesh, x_c), True)
+            expect_equal(f"{tag}: totals", tot_mesh.tolist(),
+                         [int(m_c.sum()), int(x_c.sum())])
+            expect_equal(f"{tag}: K7 launches == slots with pieces",
+                         launches[tag]["group_stats"], with_pieces)
+        b1 = pipeline.shard_records(t, pool, 1)
+        tab7 = b1.tables[0]
+        m7, c7, tot7, straddles, k7_err = k7_check(
+            torch, devconf, group_stats, pipeline, pool.ext, tab7,
+            b1.rec_pad)
+        expect_equal(f"K7 == plain on the card == C loop at full size, "
+                     f"{K7_SEQ_RANGES} seq ranges of {tab7.shape[1]} pieces",
+                     np.array_equal(m7[:N_RECORDS], m_c)
+                     and np.array_equal(c7[:N_RECORDS], m_c + x_c)
+                     and not m7[N_RECORDS:].any()
+                     and tot7.tolist() == [m_c.sum(), x_c.sum()], True)
+        expect_equal("a record's pieces lie in two seq ranges", straddles,
+                     True)
+        for label, c in k1_edge_cases().items():
+            tab = compare.build_piece_table(
+                c["lens"], c["qpos0"], c["tpos0"], c["rev"], c["rec"],
+                len(c["pool"]), c["n_records"])
+            e = mismatch_device.build_ext_pool(devconf.upload(c["pool"], dev))
+            m_e, c_e, tot_e, _, err = k7_check(
+                torch, devconf, group_stats, pipeline, e, tab,
+                c["n_records"])
+            m_edge, x_edge = native.column_compare_counts(
+                c["pool"], c["lens"], c["qpos0"], c["tpos0"], c["rev"],
+                c["rec"], c["n_records"])
+            k7_err = max(k7_err, err)
+            expect_equal(f"K7 == plain == C loop on K1's edge case {label} "
+                         f"in {K7_SEQ_RANGES} seq ranges",
+                         np.array_equal(m_e, m_edge)
+                         and np.array_equal(c_e, m_edge + x_edge)
+                         and tot_e.tolist() == [m_edge.sum(), x_edge.sum()],
+                         True)
+        mesh42 = pipeline.make_mesh(slots, dp=4, sp=2)
+        tag = "sharded_pipeline_stage 4x2"
+        staged = measure(tag, lambda: runner.sharded_pipeline_stage(
+            tp, mismatch.SequencePool.from_fasta_files([fa]), mesh42))
+        sp_out = os.path.join(d, "sharded_stage.paf")
+        with open(sp_out, "wb") as fh:
+            fh.write(pafio.serialize_paf_bytes(staged))
+        expect_pin(tag, sp_out, pin="run_pipeline")
+        launched(tag, ("chain_dp", "tile_sweep"))
+        tag = "run_pipeline 4x2"
+        piped = measure(tag, lambda: runner.run_pipeline(
+            tp, mismatch.SequencePool.from_fasta_files([fa]), n_shards=1,
+            mesh=mesh42))
+        rp_out = os.path.join(d, "run_pipeline_mesh.paf")
+        with open(rp_out, "wb") as fh:
+            fh.write(pafio.serialize_paf_bytes(piped))
+        expect_pin(tag, rp_out, pin="run_pipeline")
+        launched(tag, ("build_ext", "run_counts", "run_fill", "chain_dp",
+                       "tile_sweep"))
+        log(f"launches during {tag}: {launches[tag]}")
+        del staged, piped, tp
+
+        log("== multiprocess")
+        mp_out = os.path.join(d, "multiprocess.paf")
+        t0 = time.perf_counter()
+        run_world([cpaf, fa, mp_out, "--shards", "2", "--workdir",
+                   os.path.join(d, "mp_shards")], 2, MP_TIMEOUT_S, d)
+        mp_wall = time.perf_counter() - t0
+        expect_pin("two processes of parallel.distributed", mp_out,
+                   pin="run_pipeline")
+        log(f"two processes of parallel.distributed on chain.paf: "
+            f"{mp_wall:.4f} s wall, from their start to their exit")
 
         log("== timing")
 
@@ -935,6 +1100,21 @@ def run(torch) -> dict:
         def k6_plain():
             return [chain_device.chain_dp_groups_plain(*a, *CHAIN_COSTS)
                     for a in k6_prefix]
+
+        # K7: the (1,1) mesh's one launch; the (4,2) mesh's 8 launches
+        tab7_d = devconf.upload(tab7, dev)
+        out7 = [torch.zeros(k, dtype=torch.int64, device=dev)
+                for k in (b1.rec_pad, b1.rec_pad, 2)]
+        slot_args = []
+        for tab in pipeline.shard_records(t, pool, 4).tables:
+            row_out = [torch.zeros_like(o) for o in out7]
+            slot_args += [(devconf.upload(tab[:, lo:hi], dev), row_out)
+                          for lo, hi in pipeline.seq_ranges(tab[2], 2)
+                          if hi > lo]
+
+        def k7_slots():
+            for tab_d, o in slot_args:
+                group_stats.group_stats(ext, tab_d, *o)
         timed = {
             "piece_compare": (k1, lambda: compare.piece_match_counts_plain(
                 ext, table, len(t))),
@@ -945,6 +1125,9 @@ def run(torch) -> dict:
                 ext, table4, first_out4, n_runs)),
             "tile_sweep": (k5, k5_plain),
             "chain_dp": (k6(k6_full), k6_plain),
+            "group_stats": (
+                lambda: group_stats.group_stats(ext, tab7_d, *out7),
+                lambda: group_stats.group_stats_plain(ext, tab7_d, *out7)),
         }
         # bytes each kernel must move: K1 reads 2 bytes of ext per column
         # and 32 bytes of table per piece and writes 8 bytes per record; K2
@@ -954,7 +1137,8 @@ def run(torch) -> dict:
         # writes 9 bytes per run; K5 reads and writes 2 bytes of count per
         # aligned base, reads 16 bytes per interval and 8 per record; K6
         # reads 9 int64 per record (qs, ts, score, lo, w, pos; qe_s, te_s,
-        # idx_s) and writes 2 (cs, pred)
+        # idx_s) and writes 2 (cs, pred); K7 reads K1's bytes and writes 16
+        # per slot (match, cols) and 16 of totals
         nbytes = {
             "piece_compare": 2 * n_cols + table_np.nbytes + 8 * len(t),
             "build_ext": 3 * raw.numel(),
@@ -964,6 +1148,7 @@ def run(torch) -> dict:
                          + 9 * n_runs),
             "tile_sweep": 4 * n_bases + 16 * n_iv + 8 * len(tt),
             "chain_dp": 88 * k6_records,
+            "group_stats": 2 * n_cols + tab7.nbytes + 16 * b1.rec_pad + 16,
         }
         n_ops = {"chain_dp": K6_OPS_PER_CANDIDATE * k6_windows}
         slow = {"tile_sweep", "chain_dp"}
@@ -991,6 +1176,11 @@ def run(torch) -> dict:
                 f"integer operations ({by_ops:.4f} ms at "
                 f"{INT32_OPS_PER_S:.4g}/s); bound {bound_ms[name]:.4f} ms "
                 f"by {bound_by[name]}")
+        k7_slots_ms = cuda_ms(torch, k7_slots, reps=7, batch=20)
+        log(f"group_stats over the (4,2) mesh's {len(slot_args)} slots: "
+            f"{k7_slots_ms:.4f} ms for the {len(slot_args)} launches, 20 in "
+            f"a row, against {row_ms['group_stats']:.4f} ms for the (1,1) "
+            f"mesh's one launch")
         k6_prefix_ms = cuda_ms(torch, k6(k6_prefix), reps=5)
         k6_plain_records = sum(int(a[1].numel()) for a in k6_prefix)
         log(f"chain_dp on the prefix ({k6_plain_records} records, where "
@@ -1011,28 +1201,34 @@ def run(torch) -> dict:
                 f"held before it")
         log(f"view -s: {n_cols / walls['view -s'] / 1e6:.1f} Mcol/s end to "
             f"end")
+        log(f"two processes of parallel.distributed: {mp_wall:.4f} s wall")
         log(gpu)
 
     errs = {"piece_compare": k1_err, "build_ext": k2_err,
             "run_counts": k4_err, "run_fill": k4_err, "tile_sweep": k5_err,
-            "chain_dp": k6_err}
+            "chain_dp": k6_err, "group_stats": k7_err}
     sources = {"piece_compare": "piece_compare.cu", "build_ext": "ext_pool.cu",
                "run_counts": "encode_runs.cu", "run_fill": "encode_runs.cu",
-               "tile_sweep": "tile_sweep.cu", "chain_dp": "chain_dp.cu"}
+               "tile_sweep": "tile_sweep.cu", "chain_dp": "chain_dp.cu",
+               "group_stats": "group_stats.cu"}
     replaces = {"piece_compare": "paffy_tpu/ops/pallas_compare.py:161",
                 "build_ext": "paffy_tpu/ops/mismatch_device.py:47",
                 "run_counts": "paffy_tpu/ops/tiled.py:302",
                 "run_fill": "paffy_tpu/ops/tiled.py:307",
                 "tile_sweep": "paffy_tpu/ops/tile_device.py:23",
-                "chain_dp": "paffy_tpu/ops/chain_device.py:26"}
+                "chain_dp": "paffy_tpu/ops/chain_device.py:26",
+                "group_stats": "paffy_tpu/parallel/pipeline.py:126"}
     path_of = {"piece_compare": "view -s", "build_ext": "view -s",
                "run_counts": "add_mismatches", "run_fill": "add_mismatches",
-               "tile_sweep": "tile", "chain_dp": "chain"}
+               "tile_sweep": "tile", "chain_dp": "chain",
+               "group_stats": "column_counts_multichip 1x1"}
     # K6's timed call is one chain run's two launches (one per strand
     # set); its plain version runs on the prefix only
     extra = {"chain_dp": {"launches_per_timed_call": len(k6_full),
                           "plain_records": k6_plain_records,
-                          "ms_at_plain_records": k6_prefix_ms}}
+                          "ms_at_plain_records": k6_prefix_ms},
+             "group_stats": {"ms_8_slots_in_a_row": k7_slots_ms,
+                             "slot_launches": len(slot_args)}}
     return {"kernels": [
         {"name": name, "route": "cuda",
          "source": f"paffy_tpu_torch/csrc/{sources[name]}",

@@ -45,6 +45,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -133,7 +135,8 @@ chain_dp_kernel(const int64_t* __restrict__ goff,
 
 }  // namespace
 
-extern "C" int paffy_chain_dp(int64_t n_groups, const void* goff,
+extern "C" int paffy_chain_dp(int device, int64_t n_groups,
+                              const void* goff,
                               const void* qs, const void* ts,
                               const void* score, const void* qe_s,
                               const void* te_s, const void* idx_s,
@@ -141,6 +144,10 @@ extern "C" int paffy_chain_dp(int64_t n_groups, const void* goff,
                               int64_t gap_open, int64_t gap_extend,
                               int64_t max_gap, void* cs_sorted, void* cs,
                               void* pred, void* stream) {
+  const paffy::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (n_groups > 0) {
     auto p = [](const void* x) { return static_cast<const int64_t*>(x); };
     chain_dp_kernel<<<static_cast<unsigned>(n_groups), kThreads, 0,

@@ -48,6 +48,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
 #include "words.cuh"
 
 namespace {
@@ -189,9 +190,14 @@ unsigned grid_of(int64_t n_pieces) {
 
 }  // namespace
 
-extern "C" int paffy_run_counts(const void* ext, int64_t ext_len,
-                                const void* table, int64_t n_pieces,
-                                void* counts, void* stream) {
+extern "C" int paffy_run_counts(int device, const void* ext,
+                                int64_t ext_len, const void* table,
+                                int64_t n_pieces, void* counts,
+                                void* stream) {
+  const paffy::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (n_pieces > 0) {
     encode_runs_kernel<false><<<grid_of(n_pieces), kThreads, 0,
                                 static_cast<cudaStream_t>(stream)>>>(
@@ -202,10 +208,15 @@ extern "C" int paffy_run_counts(const void* ext, int64_t ext_len,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int paffy_run_fill(const void* ext, int64_t ext_len,
-                              const void* table, int64_t n_pieces,
+extern "C" int paffy_run_fill(int device, const void* ext,
+                              int64_t ext_len, const void* table,
+                              int64_t n_pieces,
                               const void* first_out, void* starts,
                               void* states, void* stream) {
+  const paffy::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (n_pieces > 0) {
     encode_runs_kernel<true><<<grid_of(n_pieces), kThreads, 0,
                                static_cast<cudaStream_t>(stream)>>>(

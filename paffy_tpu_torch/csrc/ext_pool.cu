@@ -21,6 +21,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -67,8 +69,12 @@ build_ext_kernel(const uint8_t* __restrict__ pool, int64_t L,
 
 }  // namespace
 
-extern "C" int paffy_build_ext(const void* pool, int64_t L, void* ext,
-                               void* stream) {
+extern "C" int paffy_build_ext(int device, const void* pool, int64_t L,
+                               void* ext, void* stream) {
+  const paffy::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
   if (L > 0) {
     int64_t blocks = (L + kThreads - 1) / kThreads;
     if (blocks > kMaxBlocks) blocks = kMaxBlocks;

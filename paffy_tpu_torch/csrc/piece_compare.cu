@@ -46,6 +46,8 @@
 //   register count low (nvcc's -Xptxas -v count is printed by
 //   chip_smoke.py's build phase).
 //
+// The walk itself is in piece_walk.cuh, which K7 (group_stats.cu) shares.
+//
 // All addressing is int64: pools past 2^31 bytes stay on the device (the
 // TPU kernel asserted 2L < 2^31, pallas_compare.py:146).  Record indices and
 // piece lengths are int32 (the host cuts pieces far shorter; the wrapper
@@ -54,153 +56,24 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "words.cuh"
+#include "device_guard.cuh"
+#include "piece_walk.cuh"
 
-namespace {
-
-using paffy::kFull;
-using paffy::realign;
-using paffy::zero_byte_flags;
-
-constexpr int kWarpsPerBlock = 4;
-constexpr int kThreads = 32 * kWarpsPerBlock;
-constexpr int kPiecesPerWarp = 8;    // table entries held by lanes 0..7
-constexpr int kWindow = 32 * 16;     // target bytes of one warp step
-constexpr int kUnroll = 2;           // steps whose loads are issued together
-
-// The four words' equal-byte flags are folded into one word: byte b of word
-// k sets bit 8b + 7 - k.  kFlagsBelow[x] has the bits of bytes 0..x-1.
-constexpr uint32_t flags_below(int x) {
-  uint32_t m = 0;
-  for (int i = 0; i < x; ++i) m |= 1u << (8 * (i & 3) + 7 - (i >> 2));
-  return m;
-}
-__constant__ uint32_t kFlagsBelow[17] = {
-    flags_below(0),  flags_below(1),  flags_below(2),  flags_below(3),
-    flags_below(4),  flags_below(5),  flags_below(6),  flags_below(7),
-    flags_below(8),  flags_below(9),  flags_below(10), flags_below(11),
-    flags_below(12), flags_below(13), flags_below(14), flags_below(15),
-    flags_below(16)};
-
-__device__ __forceinline__ void flush(unsigned count, int rec,
-                                      unsigned long long* match) {
-  const unsigned sum = __reduce_add_sync(kFull, count);
-  if ((threadIdx.x & 31) == 0 && sum != 0) {
-    atomicAdd(match + rec, static_cast<unsigned long long>(sum));
+extern "C" int paffy_piece_counts(int device, const void* ext,
+                                  int64_t ext_len, const void* table,
+                                  int64_t n_pieces, void* match,
+                                  void* stream) {
+  const paffy::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
   }
-}
-
-__global__ void __launch_bounds__(kThreads)
-piece_compare_kernel(const uint8_t* __restrict__ ext, int64_t ext_len,
-                     const int64_t* __restrict__ table, int64_t n_pieces,
-                     unsigned long long* __restrict__ match) {
-  __shared__ uint32_t below[17];   // kFlagsBelow, indexed per lane
-  if (threadIdx.x < 17) below[threadIdx.x] = kFlagsBelow[threadIdx.x];
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int64_t p0 = (static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock +
-                      (threadIdx.x >> 5)) * kPiecesPerWarp;
-  if (p0 >= n_pieces) return;   // the whole warp
-  const int cnt = static_cast<int>(
-      n_pieces - p0 < kPiecesPerWarp ? n_pieces - p0 : kPiecesPerWarp);
-  // lane k holds piece p0 + k: its table entry and its window count
-  int64_t my_q = 0, my_t = 0;
-  int my_n = 0, my_rec = 0, my_windows = 0;
-  if (lane < cnt) {
-    my_q = table[p0 + lane];
-    my_t = table[n_pieces + p0 + lane];
-    my_n = static_cast<int>(table[2 * n_pieces + p0 + lane]);
-    my_rec = static_cast<int>(table[3 * n_pieces + p0 + lane]);
-    my_windows = (static_cast<int>(my_t & 15) + my_n + kWindow - 1) / kWindow;
-  }
-  // the piece's first step: an exclusive scan of the window counts
-  int incl = my_windows;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const int v = __shfl_up_sync(kFull, incl, d);
-    if (lane >= d) incl += v;
-  }
-  const int my_first = incl - my_windows;   // lanes >= cnt: the step count
-  const int steps = __shfl_sync(kFull, incl, 31);
-  const int l16 = 16 * lane;
-  int cur = __shfl_sync(kFull, my_rec, 0);
-  unsigned count = 0;
-#pragma unroll 1
-  for (int s = 0; s < steps; s += kUnroll) {
-    uint4 tw[kUnroll], qa[kUnroll], qb[kUnroll];
-    int lo[kUnroll], hi[kUnroll], sh[kUnroll], rec[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int step = s + u;
-      const bool valid = step < steps;          // the same on every lane
-      // the step's piece is the last lane whose first step is not after it
-      // (first steps ascend along the lanes)
-      const int src = valid
-          ? __popc(__ballot_sync(kFull, my_first <= step)) - 1 : 0;
-      const int64_t ts = __shfl_sync(kFull, my_t, src);
-      const int64_t qs = __shfl_sync(kFull, my_q, src);
-      const int n = __shfl_sync(kFull, my_n, src);
-      const int first = __shfl_sync(kFull, my_first, src);
-      rec[u] = __shfl_sync(kFull, my_rec, src);
-      const int head = static_cast<int>(ts & 15);
-      // this lane's word starts off bytes after the piece's first aligned
-      // target word and holds the piece's columns at its bytes [lo, hi)
-      const int off = (step - first) * kWindow + l16;
-      lo[u] = max(head - off, 0);
-      hi[u] = valid ? min(head + n - off, 16) : 0;
-      const int64_t qbyte = qs - head;   // the query byte of the word's byte 0
-      sh[u] = static_cast<int>(qbyte & 15);
-      const int64_t qword = (qbyte & ~int64_t{15}) + off;
-      tw[u] = qa[u] = qb[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (hi[u] > lo[u]) {
-        tw[u] = __ldg(reinterpret_cast<const uint4*>(ext + (ts - head) + off));
-        if (static_cast<uint64_t>(qword) < static_cast<uint64_t>(ext_len)) {
-          qa[u] = __ldg(reinterpret_cast<const uint4*>(ext + qword));
-        }
-        if (sh[u] != 0 && static_cast<uint64_t>(qword + 16) <
-                              static_cast<uint64_t>(ext_len)) {
-          qb[u] = __ldg(reinterpret_cast<const uint4*>(ext + qword + 16));
-        }
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      unsigned c = 0;
-      if (hi[u] > lo[u]) {
-        const uint4 q = realign(qa[u], qb[u], sh[u]);
-        const uint4 t = tw[u];
-        const uint32_t flags = zero_byte_flags(q.x ^ t.x) |
-                               (zero_byte_flags(q.y ^ t.y) >> 1) |
-                               (zero_byte_flags(q.z ^ t.z) >> 2) |
-                               (zero_byte_flags(q.w ^ t.w) >> 3);
-        c = __popc(flags & below[hi[u]] & ~below[lo[u]]);
-      }
-      if (s + u < steps) {
-        if (rec[u] != cur) {   // the same on every lane
-          flush(count, cur, match);
-          count = 0;
-          cur = rec[u];
-        }
-        count += c;
-      }
-    }
-  }
-  flush(count, cur, match);
-}
-
-}  // namespace
-
-extern "C" int paffy_piece_counts(const void* ext, int64_t ext_len,
-                                  const void* table, int64_t n_pieces,
-                                  void* match, void* stream) {
   if (n_pieces > 0) {
-    const int64_t warps = (n_pieces + kPiecesPerWarp - 1) / kPiecesPerWarp;
-    const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    piece_compare_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const uint8_t*>(ext), ext_len,
-        static_cast<const int64_t*>(table), n_pieces,
-        static_cast<unsigned long long*>(match));
+    paffy::piece_walk_kernel<false>
+        <<<paffy::walk_blocks(n_pieces), paffy::kWalkThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const uint8_t*>(ext), ext_len,
+            static_cast<const int64_t*>(table), n_pieces,
+            static_cast<unsigned long long*>(match), nullptr, nullptr);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -43,6 +43,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 1024;
@@ -199,11 +201,17 @@ tile_sweep_kernel(const int64_t* __restrict__ seq_off,
 
 }  // namespace
 
-extern "C" int paffy_tile_sweep(int64_t n_seqs, const void* seq_off,
+extern "C" int paffy_tile_sweep(int device, int64_t n_seqs,
+                                const void* seq_off,
                                 const void* order, const void* arena_off,
                                 const void* run_off, const void* istart,
                                 const void* iend, void* arena, int64_t cap,
                                 void* levels, void* stream) {
+  const paffy::DeviceGuard guard(device);
+  if (guard.error() != cudaSuccess) {
+    return static_cast<int>(guard.error());
+  }
+  // the attribute is per device: this sets it on the launch's device
   const int dyn = static_cast<int>(4 * (cap + 1));
   cudaError_t err = cudaFuncSetAttribute(
       tile_sweep_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);

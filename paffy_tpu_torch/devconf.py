@@ -8,6 +8,8 @@ One explicit ``torch.device`` for every command:
     raises -- the port never falls back to the CPU on its own;
   * anything else raises.
 
+``devices`` lists every device of that platform, for the mesh path.
+
 Results cross back to the host as int64 numpy arrays (``to_host_i64``), the
 PAF data model's integer type, or as they are through pinned memory
 (``download``, for large outputs).
@@ -38,6 +40,17 @@ def device() -> torch.device:
             f"set {PLATFORM_ENV}=cpu to run the plain PyTorch versions on "
             "the CPU")
     return torch.device("cuda", 0)
+
+
+def devices() -> list[torch.device]:
+    """Every device the port may compute on, in order: ``[cpu]`` under
+    ``PAFFY_TPU_PLATFORM=cpu``, else every visible CUDA device, cuda:0 to
+    cuda:n-1 (raises without CUDA, as ``device`` does).  The mesh path
+    (parallel/pipeline.py) lays its slots over them."""
+    dev = device()
+    if dev.type == "cpu":
+        return [dev]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def to_host_i64(t: torch.Tensor) -> np.ndarray:

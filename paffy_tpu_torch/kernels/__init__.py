@@ -10,27 +10,37 @@ and flags, so an edited source rebuilds; it lives in
 ``paffy_tpu_torch/_build/`` (git-ignored).  A failed build raises: nothing
 falls back.
 
-C interface (every entry point launches on the given stream, allocates
-nothing, and returns ``cudaGetLastError()``; ``check`` raises on non-zero):
+C interface (every entry point takes the CUDA device index of its tensors
+first, makes that device current for the launch and then restores the
+caller's (csrc/device_guard.cuh), launches on the given stream of that
+device, allocates nothing, and returns ``cudaGetLastError()``; ``check``
+raises on non-zero):
 
-    int paffy_build_ext(const u8* pool, i64 L, u8* ext, cudaStream_t s)
-    int paffy_piece_counts(const u8* ext, i64 ext_len, const i64* table,
-                           i64 n_pieces, u64* match, cudaStream_t s)
-    int paffy_run_counts(const u8* ext, i64 ext_len, const i64* table,
-                         i64 n_pieces, i32* counts, cudaStream_t s)
-    int paffy_run_fill(const u8* ext, i64 ext_len, const i64* table,
+    int paffy_build_ext(int dev, const u8* pool, i64 L, u8* ext,
+                        cudaStream_t s)
+    int paffy_piece_counts(int dev, const u8* ext, i64 ext_len,
+                           const i64* table, i64 n_pieces, u64* match,
+                           cudaStream_t s)
+    int paffy_run_counts(int dev, const u8* ext, i64 ext_len,
+                         const i64* table, i64 n_pieces, i32* counts,
+                         cudaStream_t s)
+    int paffy_run_fill(int dev, const u8* ext, i64 ext_len, const i64* table,
                        i64 n_pieces, const i64* first_out, i64* starts,
                        u8* states, cudaStream_t s)
-    int paffy_tile_sweep(i64 n_seqs, const i64* seq_off, const i64* order,
-                         const i64* arena_off, const i64* run_off,
-                         const i64* istart, const i64* iend, u16* arena,
-                         i64 cap, i64* levels, cudaStream_t s)
-    int paffy_chain_dp(i64 n_groups, const i64* goff, const i64* qs,
+    int paffy_tile_sweep(int dev, i64 n_seqs, const i64* seq_off,
+                         const i64* order, const i64* arena_off,
+                         const i64* run_off, const i64* istart,
+                         const i64* iend, u16* arena, i64 cap, i64* levels,
+                         cudaStream_t s)
+    int paffy_chain_dp(int dev, i64 n_groups, const i64* goff, const i64* qs,
                        const i64* ts, const i64* score, const i64* qe_s,
                        const i64* te_s, const i64* idx_s, const i64* lo,
                        const i64* w, const i64* pos, i64 gap_open,
                        i64 gap_extend, i64 max_gap, i64* cs_sorted,
                        i64* cs, i64* pred, cudaStream_t s)
+    int paffy_group_stats(int dev, const u8* ext, i64 ext_len,
+                          const i64* table, i64 n_pieces, u64* match,
+                          u64* cols, u64* totals, cudaStream_t s)
     const char* paffy_error_string(int code)
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds one
@@ -55,7 +65,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"piece_compare": 0, "build_ext": 0, "run_counts": 0,
-            "run_fill": 0, "tile_sweep": 0, "chain_dp": 0}
+            "run_fill": 0, "tile_sweep": 0, "chain_dp": 0, "group_stats": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -148,21 +158,23 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
-            vp, i64 = ctypes.c_void_p, ctypes.c_int64
-            lib.paffy_build_ext.argtypes = [vp, i64, vp, vp]
-            lib.paffy_build_ext.restype = ctypes.c_int
-            lib.paffy_piece_counts.argtypes = [vp, i64, vp, i64, vp, vp]
-            lib.paffy_piece_counts.restype = ctypes.c_int
-            lib.paffy_run_counts.argtypes = [vp, i64, vp, i64, vp, vp]
-            lib.paffy_run_counts.restype = ctypes.c_int
-            lib.paffy_run_fill.argtypes = [vp, i64, vp, i64, vp, vp, vp, vp]
-            lib.paffy_run_fill.restype = ctypes.c_int
-            lib.paffy_tile_sweep.argtypes = [i64, vp, vp, vp, vp, vp, vp, vp,
-                                             i64, vp, vp]
-            lib.paffy_tile_sweep.restype = ctypes.c_int
-            lib.paffy_chain_dp.argtypes = [i64, *[vp] * 10, i64, i64, i64,
-                                           vp, vp, vp, vp]
-            lib.paffy_chain_dp.restype = ctypes.c_int
+            vp, i64, dev = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+            lib.paffy_build_ext.argtypes = [dev, vp, i64, vp, vp]
+            lib.paffy_piece_counts.argtypes = [dev, vp, i64, vp, i64, vp, vp]
+            lib.paffy_run_counts.argtypes = [dev, vp, i64, vp, i64, vp, vp]
+            lib.paffy_run_fill.argtypes = [dev, vp, i64, vp, i64, vp, vp, vp,
+                                           vp]
+            lib.paffy_tile_sweep.argtypes = [dev, i64, vp, vp, vp, vp, vp, vp,
+                                             vp, i64, vp, vp]
+            lib.paffy_chain_dp.argtypes = [dev, i64, *[vp] * 10, i64, i64,
+                                           i64, vp, vp, vp, vp]
+            lib.paffy_group_stats.argtypes = [dev, vp, i64, vp, i64, vp, vp,
+                                              vp, vp]
+            for fn in (lib.paffy_build_ext, lib.paffy_piece_counts,
+                       lib.paffy_run_counts, lib.paffy_run_fill,
+                       lib.paffy_tile_sweep, lib.paffy_chain_dp,
+                       lib.paffy_group_stats):
+                fn.restype = ctypes.c_int
             lib.paffy_error_string.argtypes = [ctypes.c_int]
             lib.paffy_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -177,12 +189,19 @@ def check(rc: int, name: str) -> None:
                            f"error {rc} ({msg})")
 
 
-def check_device(dev) -> None:
-    """Raise unless ``dev`` is cuda:0.  The library carries its own CUDA
-    runtime, whose current device is 0; it shares device 0's primary
-    context, streams and memory with PyTorch."""
-    if dev.type != "cuda" or dev.index not in (None, 0):
-        raise ValueError(f"the CUDA kernels run on cuda:0, not on {dev}")
+def check_device(dev) -> int:
+    """The index of ``dev``, a CUDA device of this process; raise for any
+    other device.  Each entry point of the library takes this index and
+    launches on that device, in its primary context, which it shares with
+    PyTorch (streams and memory included)."""
+    import torch
+    n = torch.cuda.device_count()
+    if dev.type == "cuda" and n:
+        index = torch.cuda.current_device() if dev.index is None else dev.index
+        if 0 <= index < n:
+            return index
+    raise ValueError(f"the CUDA kernels run on a CUDA device of this "
+                     f"process ({n} visible), not on {dev}")
 
 
 def stream_of(t) -> int:

@@ -22,9 +22,11 @@ are written head first, chain ids in extraction order, and the chain total
 is recomputed along the surviving links (impl/chaining.c:88-113, 216-233).
 
 The DP runs on the device, always: one K6 launch per strand set over all
-its groups (ops/chain_device.chain_dp_groups, arguments from
-``dp_arguments``).  There is no per-group host route and no size routing;
-the C DP (native.chain_dp) is a reference for the tests and chip_smoke.py.
+its groups (ops/chain_device.chain_groups_device, arguments from
+``dp_arguments``), or with ``dp_many`` = chain_groups_device over a mesh,
+one launch per data row of the mesh.  There is no per-group host route and
+no size routing; the C DP (native.chain_dp) is a reference for the tests
+and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -33,10 +35,10 @@ from dataclasses import replace
 
 import numpy as np
 
-from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch import phases
 from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.core.pafio import paf_check
-from paffy_tpu_torch.ops.chain_device import chain_dp_groups
+from paffy_tpu_torch.ops.chain_device import chain_groups_device
 
 _NEG = np.int64(-(1 << 62))
 
@@ -110,30 +112,29 @@ def _strand_set_groups(t: PafTable, sel, qs, qe, ts, te):
 
 
 def _chain_strand_set(t: PafTable, sel, qs, qe, ts, te, gap_open: int,
-                      gap_extend: int, max_gap: int, chain_id_start: int):
+                      gap_extend: int, max_gap: int, chain_id_start: int,
+                      dp_many=None):
     """Chain the records ``sel`` (one strand set, mirrored coordinates):
     (the records in output order, their chain ids, their chain scores, the
-    next chain id)."""
+    next chain id).  ``dp_many`` solves the DP of a list of (qs, qe, ts,
+    te, score) groups into a list of (chain_score, pred) (default:
+    chain_groups_device, one K6 launch on devconf.device())."""
     n = len(sel)
     if n == 0:
         return (np.zeros(0, dtype=np.int64),) * 3 + (chain_id_start,)
     with phases.timed("window"):
         idx, perm, goff, groups = _strand_set_groups(t, sel, qs, qe, ts, te)
-        args = dp_arguments(groups, max_gap)
-    dev = devconf.device()
-    with phases.timed("K6", dev):
-        cs_d, pred_d = chain_dp_groups(
-            *(devconf.upload(a, dev) for a in args), gap_open, gap_extend,
-            max_gap)
-        cs_slot, pred_slot = (devconf.to_host_i64(cs_d),
-                              devconf.to_host_i64(pred_d))
+    results = (dp_many or chain_groups_device)(groups, gap_open, gap_extend,
+                                               max_gap)
     with phases.timed("extract"):
-        # slots back to processing positions
+        # each group's results back to processing positions
         cs = np.empty(n, dtype=np.int64)
-        cs[perm] = cs_slot
         pred = np.full(n, -1, dtype=np.int64)
-        pred[perm] = np.where(pred_slot >= 0,
-                              perm[np.clip(pred_slot, 0, None)], -1)
+        for (gcs, gpred), a, b in zip(results, goff[:-1], goff[1:]):
+            members = perm[a:b]
+            cs[members] = gcs
+            pred[members] = np.where(gpred >= 0,
+                                     members[np.clip(gpred, 0, None)], -1)
         sqs, sqe, sts, ste, sscore = (
             a[idx].tolist() for a in (qs, qe, ts, te, t.score))
         pred_l = pred.tolist()
@@ -195,17 +196,20 @@ def chain_groups(t: PafTable, pct_trim: float = 1.0) -> list[list[tuple]]:
 
 
 def paf_chain(t: PafTable, gap_open: int = 5000, gap_extend: int = 1,
-              max_gap: int = 1000000, pct_trim: float = 1.0) -> PafTable:
+              max_gap: int = 1000000, pct_trim: float = 1.0,
+              dp_many=None) -> PafTable:
     """Chain a batch of records (paf_chain, impl/chaining.c:266-343); the
-    default costs are paffy chain's (impl/paf_chain.c:17-20,36-45)."""
+    default costs are paffy chain's (impl/paf_chain.c:17-20,36-45).
+    ``dp_many`` replaces the DP solver (see _chain_strand_set)."""
     tagged, perm = paf_chain_order(t, gap_open=gap_open,
                                    gap_extend=gap_extend, max_gap=max_gap,
-                                   pct_trim=pct_trim)
+                                   pct_trim=pct_trim, dp_many=dp_many)
     return tagged.take(perm) if perm is not None else tagged
 
 
 def paf_chain_order(t: PafTable, gap_open: int = 5000, gap_extend: int = 1,
-                    max_gap: int = 1000000, pct_trim: float = 1.0):
+                    max_gap: int = 1000000, pct_trim: float = 1.0,
+                    dp_many=None):
     """paf_chain without reordering the table: (tagged, perm), the input
     with its cn and s1 tags set, in input order, and the output order
     (descending score, stable, impl/chaining.c:337).  Writing ``tagged``
@@ -216,10 +220,10 @@ def paf_chain_order(t: PafTable, gap_open: int = 5000, gap_extend: int = 1,
         return t, None
     o1, id1, cs1, nxt = _chain_strand_set(t, np.flatnonzero(t.strand), qs,
                                           qe, ts, te, gap_open, gap_extend,
-                                          max_gap, 0)
+                                          max_gap, 0, dp_many)
     o2, id2, cs2, _ = _chain_strand_set(t, np.flatnonzero(~t.strand), qs,
                                         qe, ts, te, gap_open, gap_extend,
-                                        max_gap, nxt)
+                                        max_gap, nxt, dp_many)
     order = np.concatenate([o1, o2])
     # the tags go back to the input positions (the reference sets them on
     # the records in place, chain_to_pafs :115-131)

@@ -19,14 +19,17 @@ j), or -1 when no candidate beats score[i].  Every index is a slot.
 
 On a CUDA tensor the wrapper launches the CUDA kernel (csrc/chain_dp.cu),
 one block per group; on a CPU tensor it runs the plain PyTorch version
-below, a loop over the records.
+below, a loop over the records.  ``chain_groups_device`` drives it for a
+list of groups: one launch on ``devconf.device()``, or one per data row of
+a mesh (parallel/pipeline.py).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from paffy_tpu_torch import kernels
+from paffy_tpu_torch import devconf, kernels, phases
 
 NEG = -(1 << 62)      # "no candidate", as paffy_tpu's _NEG
 
@@ -81,7 +84,7 @@ def chain_dp_groups(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
         raise ValueError("every tensor must be on one device")
     if qs.device.type == "cpu":
         return chain_dp_groups_plain(*args, gap_open, gap_extend, max_gap)
-    kernels.check_device(qs.device)
+    dev = kernels.check_device(qs.device)
     cs = torch.empty(n, dtype=torch.int64, device=qs.device)
     pred = torch.empty_like(cs)
     if n == 0:
@@ -89,9 +92,42 @@ def chain_dp_groups(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
     cs_sorted = torch.empty_like(cs)      # scratch: cs in query-end order
     args = [x.contiguous() for x in args]
     rc = kernels.load().paffy_chain_dp(
-        goff.numel() - 1, *(x.data_ptr() for x in args), gap_open,
+        dev, goff.numel() - 1, *(x.data_ptr() for x in args), gap_open,
         gap_extend, max_gap, cs_sorted.data_ptr(), cs.data_ptr(),
         pred.data_ptr(), kernels.stream_of(cs))
     kernels.check(rc, "chain_dp")
     kernels.LAUNCHES["chain_dp"] += 1
     return cs, pred
+
+
+def chain_groups_device(groups, gap_open: int, gap_extend: int, max_gap: int,
+                        mesh=None):
+    """The chain DP of ``groups``, a list of (qs, qe, ts, te, score) int64
+    arrays in processing order: a list of (chain_score, pred) per group,
+    pred a group-local index or -1, as _dp_numpy gives them.  Without a
+    mesh, one K6 launch over all groups on ``devconf.device()``; with one,
+    the groups are cut into ``data`` contiguous blocks of ceil(G / data)
+    (where paffy_tpu's P("data") puts them) and each block is one launch on
+    its row's first device.  The groups lie end to end, without padding."""
+    from paffy_tpu_torch.ops.chain import dp_arguments   # it imports this
+    if not groups:
+        return []
+    rows = ([devconf.device()] if mesh is None
+            else [row[0] for row in mesh.devices])
+    size = -(-len(groups) // len(rows))
+    launched = []
+    for dev, a in zip(rows, range(0, len(groups), size)):
+        with phases.timed("window"):
+            args = dp_arguments(groups[a: a + size], max_gap)
+        with phases.timed("K6"):
+            launched.append((args[0], *chain_dp_groups(
+                *(devconf.upload(x, dev) for x in args), gap_open,
+                gap_extend, max_gap)))
+    out = []
+    with phases.timed("K6"):      # ends with the readbacks
+        for goff, cs, pred in launched:
+            cs, pred = devconf.to_host_i64(cs), devconf.to_host_i64(pred)
+            for a, b in zip(goff[:-1].tolist(), goff[1:].tolist()):
+                out.append((cs[a:b], np.where(pred[a:b] >= 0, pred[a:b] - a,
+                                              -1)))
+    return out

@@ -136,7 +136,7 @@ def piece_match_counts(ext: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"ext on {ext.device} but table on {table.device}")
     if ext.device.type == "cpu":
         return piece_match_counts_plain(ext, table, n_records)
-    kernels.check_device(ext.device)
+    dev = kernels.check_device(ext.device)
     if n_records >= 2**31:
         raise ValueError(f"{n_records} records: the kernel's record index is "
                          f"int32")
@@ -148,7 +148,7 @@ def piece_match_counts(ext: torch.Tensor, table: torch.Tensor,
     if n_pieces == 0:
         return match
     rc = kernels.load().paffy_piece_counts(
-        ext.data_ptr(), ext.numel(), table.data_ptr(), n_pieces,
+        dev, ext.data_ptr(), ext.numel(), table.data_ptr(), n_pieces,
         match.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "piece_compare")
     kernels.LAUNCHES["piece_compare"] += 1

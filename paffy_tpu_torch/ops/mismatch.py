@@ -72,6 +72,7 @@ class SequencePool:
         self._pool_np = buf
         self.device = devconf.device()
         self._ext_t = None
+        self._ext_copies: dict[torch.device, torch.Tensor] = {}
 
     @property
     def pool_len(self) -> int:
@@ -127,6 +128,27 @@ class SequencePool:
                 self._ext_t = build_ext_pool(raw)
             del raw
         return self._ext_t
+
+    def ext_on(self, dev: torch.device) -> torch.Tensor:
+        """``ext`` on ``dev``: the same tensor on the pool's own device,
+        elsewhere one device-to-device copy, kept per device (the
+        replication of ``ext`` over a mesh)."""
+        dev = torch.device(dev)
+        if dev == self.device:
+            return self.ext
+        if dev not in self._ext_copies:
+            self._ext_copies[dev] = self.ext.to(dev)
+        return self._ext_copies[dev]
+
+    def subset(self, names) -> "SequencePool":
+        """A pool of only the sequences ``names`` that this pool holds, in
+        the order given (a process's own shards' sequences)."""
+        keep = [n for n in names if n in self.index]
+        parts = [self.seq_bytes(n) for n in keep]
+        starts = np.cumsum([0] + [len(p) for p in parts])
+        return SequencePool.from_arrays(
+            np.concatenate(parts) if parts else np.zeros(0, dtype=np.uint8),
+            {n: (int(s), len(p)) for n, s, p in zip(keep, starts, parts)})
 
 
 def column_match_counts(t: PafTable, pool: SequencePool

@@ -58,13 +58,14 @@ def build_ext_pool(pool: torch.Tensor) -> torch.Tensor:
                          f"{pool.dtype} of shape {tuple(pool.shape)}")
     if pool.device.type == "cpu":
         return build_ext_pool_plain(pool)
-    kernels.check_device(pool.device)
+    dev = kernels.check_device(pool.device)
     pool = pool.contiguous()
     n = pool.numel()
     ext = torch.empty(2 * n, dtype=torch.uint8, device=pool.device)
     if n == 0:
         return ext
-    rc = kernels.load().paffy_build_ext(pool.data_ptr(), n, ext.data_ptr(),
+    rc = kernels.load().paffy_build_ext(dev, pool.data_ptr(), n,
+                                        ext.data_ptr(),
                                         kernels.stream_of(pool))
     kernels.check(rc, "build_ext")
     kernels.LAUNCHES["build_ext"] += 1

@@ -104,8 +104,8 @@ def run_counts(ext: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if table.shape[1] == 0:
         return counts
     rc = kernels.load().paffy_run_counts(
-        ext.data_ptr(), ext.numel(), table.data_ptr(), table.shape[1],
-        counts.data_ptr(), kernels.stream_of(ext))
+        ext.device.index, ext.data_ptr(), ext.numel(), table.data_ptr(),
+        table.shape[1], counts.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "run_counts")
     kernels.LAUNCHES["run_counts"] += 1
     return counts
@@ -132,9 +132,9 @@ def run_fill(ext: torch.Tensor, table: torch.Tensor, first_out: torch.Tensor,
     if table.shape[1] == 0:
         return starts, states
     rc = kernels.load().paffy_run_fill(
-        ext.data_ptr(), ext.numel(), table.data_ptr(), table.shape[1],
-        first_out.data_ptr(), starts.data_ptr(), states.data_ptr(),
-        kernels.stream_of(ext))
+        ext.device.index, ext.data_ptr(), ext.numel(), table.data_ptr(),
+        table.shape[1], first_out.data_ptr(), starts.data_ptr(),
+        states.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "run_fill")
     kernels.LAUNCHES["run_fill"] += 1
     return starts, states

@@ -69,7 +69,7 @@ def tile_sweep(order, arena_off, run_off, istart, iend, arena,
     if arena.device.type == "cpu":
         return tile_sweep_plain(order, arena_off, run_off, istart, iend,
                                 arena, cap)
-    kernels.check_device(arena.device)
+    dev = kernels.check_device(arena.device)
     if not arena.is_contiguous():
         raise ValueError("arena must be contiguous")
     n = run_off.numel() - 1
@@ -89,7 +89,7 @@ def tile_sweep(order, arena_off, run_off, istart, iend, arena,
     arena_off, run_off = arena_off.contiguous(), run_off.contiguous()
     istart, iend = istart.contiguous(), iend.contiguous()
     rc = lib.paffy_tile_sweep(
-        counts.numel(), seq_off.data_ptr(), by_seq.data_ptr(),
+        dev, counts.numel(), seq_off.data_ptr(), by_seq.data_ptr(),
         arena_off.data_ptr(), run_off.data_ptr(), istart.data_ptr(),
         iend.data_ptr(), arena.data_ptr(), cap, levels.data_ptr(),
         kernels.stream_of(arena))

@@ -1,7 +1,7 @@
-"""The fused per-contig pipeline on one card (counterpart of
+"""The fused per-contig pipeline (counterpart of
 paffy_tpu/parallel/runner.py: ``split_by_contig`` :33, ``assign_shards``
-:49, ``pipeline_stage`` :65, ``run_pipeline`` :115, ``concat_tables``
-:159).
+:49, ``pipeline_stage`` :65, ``sharded_pipeline_stage`` :83,
+``run_pipeline`` :115, ``concat_tables`` :159).
 
 The reference splits a PAF per contig (paffy split_file) and runs
 ``add_mismatches | chain | tile | trim`` on each shard
@@ -11,13 +11,15 @@ fused stage, and the outputs are concatenated in group order, so the bytes
 do not depend on the shard count.  On the one card of the port the groups
 run one after another, with no thread pool: the output is in group order
 either way.  The stage's device work is the port's: K2 and K4 in the
-encode, K6 in the chain, K5 in the tile.  The mesh-sharded stage waits for
-multi-GPU sharding.
+encode, K6 in the chain, K5 in the tile.  With a mesh
+(parallel/pipeline.py), ``sharded_pipeline_stage`` puts the chain's groups
+and the tile's query sequences on the mesh's data rows.
 """
 
 from __future__ import annotations
 
 from dataclasses import fields, replace
+from functools import partial
 
 import numpy as np
 
@@ -25,9 +27,11 @@ from paffy_tpu_torch import phases
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.ops.chain import paf_chain
+from paffy_tpu_torch.ops.chain_device import chain_groups_device
 from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
 from paffy_tpu_torch.ops.tailtrim import trim_unreliable_tails
-from paffy_tpu_torch.ops.tile import assign_tile_levels, tile_sort_order
+from paffy_tpu_torch.ops.tile import (assign_tile_levels_sharded,
+                                      tile_sort_order)
 
 
 def split_by_contig(t: PafTable, by_query: bool = True) -> list[np.ndarray]:
@@ -60,13 +64,28 @@ def pipeline_stage(t: PafTable, pool: SequencePool,
                    trim_fraction: float = 1.0) -> PafTable:
     """One shard's fused pipeline, add_mismatches | chain | tile | trim
     (tests/paf_pipeline_test.sh:57-60), on parsed cigars throughout."""
+    return sharded_pipeline_stage(t, pool, None, trim_identity,
+                                  trim_fraction)
+
+
+def sharded_pipeline_stage(t: PafTable, pool: SequencePool, mesh,
+                           trim_identity: float = 0.05,
+                           trim_fraction: float = 1.0) -> PafTable:
+    """``pipeline_stage`` with its chain and tile on ``mesh``'s data rows
+    (None: on ``devconf.device()``): the chain's (qname, tname) groups
+    through chain_groups_device(mesh=), the tile's query sequences through
+    assign_tile_levels_sharded.  The encode runs on the pool's device.
+    paffy_tpu's docstring names sharded_view_stats as the stage's column
+    stats step, but its code runs the unsharded encode
+    (paffy_tpu/parallel/runner.py:92-93, :102); this follows the code.  The
+    bytes do not depend on the mesh."""
     t = encode_mismatches(t, pool)
     with phases.timed("check"):
         pafio.paf_check(t)
-    t = paf_chain(t)
+    t = paf_chain(t, dp_many=partial(chain_groups_device, mesh=mesh))
     with phases.timed("order"):
         order = tile_sort_order(t)
-    t = replace(t, tile_level=assign_tile_levels(t, order))
+    t = replace(t, tile_level=assign_tile_levels_sharded(t, order, mesh=mesh))
     with phases.timed("take"):
         t = t.take(order)
     with phases.timed("trim"):
@@ -77,9 +96,10 @@ def pipeline_stage(t: PafTable, pool: SequencePool,
 
 
 def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
-                 by_query: bool = True) -> PafTable:
+                 by_query: bool = True, mesh=None) -> PafTable:
     """The fused pipeline per contig group, concatenated in group order.
-    ``seqs`` is {name: sequence} or a SequencePool."""
+    ``seqs`` is {name: sequence} or a SequencePool.  With ``mesh``, each
+    group runs ``sharded_pipeline_stage``; the bytes are the same."""
     pool = seqs if isinstance(seqs, SequencePool) else SequencePool(seqs)
     groups = split_by_contig(t, by_query=by_query)
     if not groups:
@@ -87,7 +107,7 @@ def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
     lens = t.qlen if by_query else t.tlen
     shards = assign_shards(groups, [int(lens[g[0]]) for g in groups],
                            n_shards)
-    out = {gi: pipeline_stage(t.take(groups[gi]), pool)
+    out = {gi: sharded_pipeline_stage(t.take(groups[gi]), pool, mesh)
            for shard in shards for gi in shard}
     return concat_tables([out[gi] for gi in range(len(groups))])
 

@@ -2,8 +2,10 @@
 small shapes and at the edge cases of K1 (chip_smoke.k1_edge_cases, also
 held against the C loop on the CPU by tests/test_torch_compare.py), K4
 (chip_smoke.k4_edge_cases) and K6 (chip_smoke.k6_edge_cases); K4, K5 and
-K6 also against the C passes, and a whole chaining on the card against
-the same on the CPU.
+K6 also against the C passes, K7 with its tables cut into seq ranges, a
+whole chaining on the card against the same on the CPU, the device check
+of the kernel library, and, on a machine with two cards or more, the mesh
+path with slots on two cards against one card.
 
 Needs a CUDA device and nvcc; skips without a device.  This file imports no
 JAX and nothing of paffy_tpu, so it also runs where JAX is absent:
@@ -22,13 +24,16 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import chip_smoke  # noqa: E402
 from paffy_tpu_torch import devconf, kernels, native  # noqa: E402
-from paffy_tpu_torch.core.pafio import parse_paf_text  # noqa: E402
+from paffy_tpu_torch.core.pafio import (parse_paf_text,  # noqa: E402
+                                        serialize_paf_bytes)
 from paffy_tpu_torch.ops import compare, mismatch_device  # noqa: E402
 from paffy_tpu_torch.ops import chain, chain_device  # noqa: E402
+from paffy_tpu_torch.ops import group_stats  # noqa: E402
 from paffy_tpu_torch.ops import runs, tile_device  # noqa: E402
 from paffy_tpu_torch.ops import mismatch as port_mm  # noqa: E402
 from paffy_tpu_torch.ops.mismatch_device import (build_ext_pool,  # noqa: E402
                                                  build_ext_pool_plain)
+from paffy_tpu_torch.parallel import pipeline, runner  # noqa: E402
 
 pytestmark = pytest.mark.needs_cuda
 P = compare.PIECE_COLS
@@ -308,3 +313,103 @@ def test_chain_wrapper_refuses_bad_inputs(cuda):
                                      *costs)
     with pytest.raises(ValueError):
         chain_device.chain_dp_groups(*args[:9], args[9][:-1], *costs)
+
+
+@pytest.mark.parametrize(
+    "lens", [[1], [17, 513, P + 1, 5], list(range(1, 3 * P, 97))],
+    ids=lambda v: f"{len(v)}runs-max{max(v)}")
+def test_group_stats_kernel_matches_plain(cuda, lens):
+    rng = np.random.default_rng(len(lens) + 7)
+    L = 50_000
+    pool = torch.from_numpy(np.frombuffer(b"ACGTacgtN", dtype=np.uint8)[
+        rng.integers(0, 9, L)].copy()).to(cuda)
+    ext = build_ext_pool(pool)
+    n_slots = 7
+    table = random_table(rng, np.array(lens, dtype=np.int64), L, n_slots)
+    before = kernels.LAUNCHES["group_stats"]
+    *got, straddles, err = chip_smoke.k7_check(
+        torch, devconf, group_stats, pipeline, ext, table, n_slots)
+    torch.cuda.synchronize()
+    n_ranges = sum(hi > lo for lo, hi in pipeline.seq_ranges(
+        table[2], chip_smoke.K7_SEQ_RANGES))
+    assert err == 0 and kernels.LAUNCHES["group_stats"] == before + n_ranges
+    m = compare.piece_match_counts_plain(ext, torch.from_numpy(table).to(
+        cuda), n_slots).cpu().numpy()
+    cols = np.bincount(table[3], weights=table[2],
+                       minlength=n_slots).astype(np.int64)
+    np.testing.assert_array_equal(got[0], m)
+    np.testing.assert_array_equal(got[1], cols)
+    assert got[2].tolist() == [m.sum(), cols.sum() - m.sum()]
+
+
+@pytest.mark.parametrize("label", chip_smoke.K1_EDGE_LABELS)
+def test_group_stats_kernel_edge_cases(cuda, label):
+    c = chip_smoke.k1_edge_cases()[label]
+    table = compare.build_piece_table(
+        c["lens"], c["qpos0"], c["tpos0"], c["rev"], c["rec"],
+        len(c["pool"]), c["n_records"])
+    ext = build_ext_pool(torch.from_numpy(c["pool"]).to(cuda))
+    m, cols, totals, _, err = chip_smoke.k7_check(
+        torch, devconf, group_stats, pipeline, ext, table, c["n_records"])
+    want, x = native.column_compare_counts(
+        c["pool"], c["lens"], c["qpos0"], c["tpos0"], c["rev"], c["rec"],
+        c["n_records"])
+    assert err == 0
+    np.testing.assert_array_equal(m, want)
+    np.testing.assert_array_equal(cols, want + x)
+    assert totals.tolist() == [want.sum(), x.sum()]
+
+
+def test_group_stats_wrapper_refuses_bad_inputs(cuda):
+    ext = torch.zeros(64, dtype=torch.uint8, device=cuda)
+    table = torch.zeros((4, 1), dtype=torch.int64, device=cuda)
+    outs = [torch.zeros(k, dtype=torch.int64, device=cuda) for k in (2, 2, 2)]
+    with pytest.raises(ValueError):
+        group_stats.group_stats(ext, table.cpu(), *outs)
+    with pytest.raises(ValueError):
+        group_stats.group_stats(ext, table, outs[0].cpu(), *outs[1:])
+    with pytest.raises(ValueError):
+        group_stats.group_stats(ext[8:40], table, *outs)
+    with pytest.raises(ValueError):
+        group_stats.group_stats(ext, table, outs[0][::2], *outs[1:])
+
+
+def test_check_device_takes_the_cards_of_this_process(cuda):
+    n = torch.cuda.device_count()
+    assert kernels.check_device(torch.device("cuda", 0)) == 0
+    assert kernels.check_device(torch.device("cuda", n - 1)) == n - 1
+    for bad in (torch.device("cuda", n), torch.device("cpu")):
+        with pytest.raises(ValueError):
+            kernels.check_device(bad)
+    # a launch on the last card leaves PyTorch's current device as it was
+    before = torch.cuda.current_device()
+    build_ext_pool(torch.zeros(64, dtype=torch.uint8,
+                               device=torch.device("cuda", n - 1)))
+    torch.cuda.synchronize(n - 1)
+    assert torch.cuda.current_device() == before
+
+
+def test_mesh_on_two_cards_equals_one_card(cuda, monkeypatch, tmp_path):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
+    fa, paf, w = chip_smoke.build_files(str(tmp_path), native,
+                                        seq_len=400_000, n_records=12,
+                                        m_columns=300_000)
+    t = parse_paf_text(pathlib.Path(paf).read_text())
+    pool = port_mm.SequencePool.from_fasta_files([fa])
+    chained = parse_paf_text(chip_smoke.chain_input(
+        w, seq_len=400_000).decode())
+    results = []
+    for slots in ([torch.device("cuda", i % 2) for i in range(8)],
+                  [torch.device("cuda", 0)] * 8):
+        mesh = pipeline.make_mesh(slots, dp=4, sp=2)
+        m, x, totals = pipeline.column_counts_multichip(t, pool, mesh)
+        staged = runner.sharded_pipeline_stage(chained, pool, mesh)
+        results.append((m.tolist(), x.tolist(), totals.tolist(),
+                        bytes(serialize_paf_bytes(staged))))
+    assert results[0] == results[1]
+    assert pool.ext_on(torch.device("cuda", 1)).device == \
+        torch.device("cuda", 1)
+    # launches on cuda:1 leave PyTorch's current device as it was
+    assert torch.cuda.current_device() == 0

@@ -65,14 +65,23 @@ def test_wrapper_rejects_non_u8_pools():
         build_ext_pool(torch.zeros((2, 4), dtype=torch.uint8))
 
 
-def test_kernels_run_on_cuda0_only():
-    kernels.check_device(torch.device("cuda", 0))
-    kernels.check_device(torch.device("cuda"))
-    for dev in (torch.device("cuda", 1), torch.device("meta")):
+def test_kernels_run_on_cuda0_only(monkeypatch):
+    # the kernels run on the CUDA devices of the process, cuda:0 to
+    # cuda:n-1 (two here, counted by a stand-in), and on nothing else
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert kernels.check_device(torch.device("cuda", 0)) == 0
+    assert kernels.check_device(torch.device("cuda")) == 0
+    assert kernels.check_device(torch.device("cuda", 1)) == 1
+    for dev in (torch.device("cuda", 2), torch.device("meta")):
         with pytest.raises(ValueError):
             kernels.check_device(dev)
     with pytest.raises(ValueError):
         build_ext_pool(torch.zeros(8, dtype=torch.uint8, device="meta"))
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 0)
+    for dev in (torch.device("cuda", 0), torch.device("cuda")):
+        with pytest.raises(ValueError):
+            kernels.check_device(dev)
 
 
 def _seqs(seed, alphabet):

@@ -196,3 +196,39 @@ def test_port_launcher_runs_without_paffy_tpu(tmp_path):
     loaded = re.findall(r"^import '((?:paffy_tpu|jax)(?:\.[\w.]+)?)'",
                         r.stderr, re.M)
     assert not loaded, loaded
+
+
+@pytest.mark.parametrize("module", [
+    "paffy_tpu_torch/distenv.py", "paffy_tpu_torch/ops/group_stats.py",
+    "paffy_tpu_torch/parallel/pipeline.py",
+    "paffy_tpu_torch/parallel/distributed.py"])
+def test_the_scan_reaches_the_mesh_modules(module):
+    assert REPO / module in PORT_FILES
+
+
+def test_port_distributed_runs_without_loading_jax(tmp_path):
+    # the multi-process runner's entry point, alone (no PAFFY_TPU_*
+    # variables: one process, no group)
+    (tmp_path / "s.fa").write_text(">q\nACGTACGTAC\n>t\nACGTTCGTAC\n")
+    (tmp_path / "in.paf").write_text(
+        "q\t10\t0\t10\t+\tt\t10\t0\t10\t10\t10\t60\tcg:Z:10M\n")
+    code = ("import runpy, sys\n"
+            "sys.argv = ['distributed', *sys.argv[1:]]\n"
+            "try:\n"
+            "    runpy.run_module('paffy_tpu_torch.parallel.distributed',\n"
+            "                     run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    assert not e.code, e.code\n"
+            "loaded = [m for m in sys.modules if m in ('jax', 'paffy_tpu')\n"
+            "          or m.startswith(('jax.', 'paffy_tpu.'))]\n"
+            "assert not loaded, f'modules were imported: {loaded}'\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PAFFY_TPU_")}
+    r = subprocess.run(
+        [sys.executable, "-c", code, "in.paf", "s.fa", "out.paf"],
+        cwd=tmp_path, env=dict(env, PAFFY_TPU_PLATFORM="cpu",
+                               PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = (tmp_path / "out.paf").read_text()
+    assert "\ttl:i:1\tcn:i:0\ts1:i:0\tcg:Z:5=\n" in out
