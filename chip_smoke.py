@@ -41,18 +41,24 @@ Phases (any failure exits non-zero and prints no result line):
               port's ``tile`` on it (launch counts reset before it) must
               equal the pinned digest of paffy_tpu's ``tile``; K5's levels
               must equal its plain version on the card and the C sweep
-              native.tile_sweep, and span more than one level.
+              native.tile_sweep, and span more than one level; K5 against
+              both on its edge cases (k5_edge_cases) at their own tiles and
+              at K5_EDGE_TILE.
 8. chain   -- the chain input (chain_input: one gapless record per M run,
               216,159 records, paffy_tpu's ``shatter`` of in.paf), pinned;
               the port's ``chain`` on it (launch counts reset before it)
               must equal the pinned digest of paffy_tpu's ``chain`` and
-              launch K6.  K6 must equal the C DP (native.chain_dp) at full
-              size on both strand sets, and its plain version on the card
-              and the C DP on the first K6_PREFIX records of each group and
-              on its edge cases (k6_edge_cases).
+              launch K6 once.  K6 must equal the C DP (native.chain_dp) at
+              full size over both strand sets in one launch, and its plain
+              version on the card and the C DP on the first K6_PREFIX
+              records of each group and on its edge cases (k6_edge_cases);
+              at K6_OTHER_K (2 and 256 recent candidates) it must equal the
+              C DP on the prefixes and the edge cases.
 9. pipeline -- the port's ``add_mismatches``, ``chain``, ``tile`` and
               ``trim`` one after another on chain_input, with files between
-              them, each pinned and each launching its kernels; then
+              them, each pinned and each launching its kernels (K6 and K5
+              once each); K5 on the pipeline's tile input against its plain
+              version (on the host: 216,159 records) and the C sweep; then
               ``run_pipeline`` in process on the same table with a pool
               from the same FASTA, pinned, with its records per second.
 10. mesh   -- column_counts_multichip on in.paf over a (1,1) mesh of the
@@ -82,12 +88,14 @@ Phases (any failure exits non-zero and prints no result line):
               includes the host's launch work; ``ms_in_a_row`` is the time
               per call of ``in_a_row`` calls (20, fewer for a kernel too
               slow for 20) between two events, which hides that work
-              behind the kernels.  K5 mutates its count arena: each timed
-              call zeroes it first, inside the timed window.  K6's timed
-              call is one chain run's launches, one per strand set; its
-              plain version is timed on the prefix.  A command's peak
-              device memory is counted above the tensors this script
-              already held.  K7's ``ms`` is the (1,1) mesh's one launch
+              behind the kernels.  K5's timed call includes its plan (the
+              (tile, record) list, built on the card), which is also timed
+              alone; K5 is also timed at each of K5_TILES, on tile_input
+              and on the pipeline's tile input.  K6's timed call is one
+              chain run's one launch; its plain version is timed on the
+              prefix; K6 is also timed at each K of K6_SWEEP_K and block of
+              K6_SWEEP_THREADS.  A command's peak device memory is counted
+              above the tensors this script already held.  K7's ``ms`` is the (1,1) mesh's one launch
               over all pieces; ``ms_8_slots_in_a_row`` is the time of the
               (4,2) mesh's 8 launches, 20 times in a row, per 8.
 
@@ -158,7 +166,12 @@ TILE_SHIFT = 250_000
 CHAIN_COSTS = (5000, 1, 1_000_000)
 # K6's plain version runs on the first records of each group only
 K6_PREFIX = 3000
-K6_BLOCK = 256                 # threads of a K6 block (csrc/chain_dp.cu)
+K6_WIDE = 1024                 # the widest windows of "wide windows" pass it
+K6_OTHER_K = (2, 256)          # K6's second and third counts of recent
+K6_SWEEP_K = (8, 16, 32, 64)   # the timing sweep of K6's K and block
+K6_SWEEP_THREADS = (256, 384, 512)
+K5_TILES = (4096, 8192, 16384, 32768, 65536)   # the timing sweep of K5's tile
+K5_EDGE_TILE = 7               # K5's edge cases also run at this tile
 # K6's operation bound: 32-bit integer instructions per candidate of the
 # windows (int64 compare of the slot, tgap and its two bounds, qgap + tgap,
 # the zero test, the gap cost's multiply-add, g < score, the value, the
@@ -173,6 +186,9 @@ MP_TIMEOUT_S = 300             # each multiprocess run's time limit
 K6_EDGE_LABELS = ("wide windows", "ties, zero gaps, g == score",
                   "tgap at max_gap", "mirrored coordinates", "past 2^40",
                   "groups of 0 and 1", "many groups and a large one")
+K5_EDGE_LABELS = ("records across many tiles", "saturation inside one tile",
+                  "zero-length intervals and empty records",
+                  "several sequences, tiles across their borders")
 
 
 def log(msg: str) -> None:
@@ -449,8 +465,8 @@ def k6_edge_cases(seed=SEED, scale=1.0):
     a group being (qs, qe, ts, te, score) int64 arrays in processing order
     (ascending qs).  ``scale`` shrinks the record counts (the CPU tests).
 
-    * wide windows: dense records, so the windows grow from 1 to past 4x
-      K6_BLOCK at scale 1;
+    * wide windows: dense records, so the windows grow from 1 to past
+      K6_WIDE at scale 1;
     * ties, zero gaps, g == score: coordinates in [0, 64), scores 3, 4 and
       6 and g = 1 + qgap + tgap: equal values at equal te and qe (the slot
       decides), candidates with a zero total gap, and with g == score;
@@ -513,6 +529,68 @@ def k6_edge_cases(seed=SEED, scale=1.0):
     cases[K6_EDGE_LABELS[6]] = (small[: len(small) // 2] + [big]
                                 + small[len(small) // 2:], (10, 1, 1000))
     return cases
+
+
+def k5_edge_cases(seed=SEED, scale=1.0):
+    """K5's edge cases: {label: (order, arena_off, run_off, istart, iend,
+    cap, tile)}, int64 arrays but cap and tile: records with ascending,
+    disjoint intervals on sequences laid end to end, an order that leaves
+    some records out.  ``scale`` shrinks the record counts and spans (the
+    CPU tests).
+
+    * records across many tiles: spans of ~6,000 bases at tile 64;
+    * saturation inside one tile: 400 records over the same 300 bases of
+      one 4,096-base tile, cap 3;
+    * zero-length intervals and empty records: a third of the intervals
+      of length 0, records without intervals and records whose intervals
+      all have length 0, at tile 256;
+    * several sequences, tiles across their borders: sequences of 1000,
+      37, 5000, 1 and 777 bases at tile 512, so tiles hold the end of one
+      sequence and the start of the next.
+    """
+    rng = np.random.default_rng(seed + 17)
+
+    def size(n, least=2):
+        return max(int(n * scale), least)
+
+    def sweep(seq_lens, n, max_iv, span, cap, tile, zero=0.0, empty=0.0,
+              at=None):
+        seq_lens = np.asarray(seq_lens, dtype=np.int64)
+        seq_off = np.cumsum(seq_lens) - seq_lens
+        seq = rng.integers(0, len(seq_lens), n)
+        starts, ends, counts = [], [], []
+        for r in range(n):
+            length = int(seq_lens[seq[r]])
+            width = min(span, length)
+            lo = at if at is not None else int(rng.integers(0, length - width
+                                                            + 1))
+            k = 0 if rng.random() < empty else int(rng.integers(1, max_iv + 1))
+            cuts = np.sort(rng.integers(lo, lo + width + 1, 2 * k))
+            s, e = cuts[0::2], cuts[1::2]
+            e = np.where(rng.random(k) < zero, s, e)
+            if r % 7 == 3:                    # every interval of length 0
+                e = s
+            starts.append(s)
+            ends.append(e)
+            counts.append(k)
+        run_off = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        order = rng.permutation(n)[: n - max(n // 20, 1)].astype(np.int64)
+        return (order, seq_off[seq].astype(np.int64), run_off,
+                np.concatenate(starts).astype(np.int64),
+                np.concatenate(ends).astype(np.int64), cap, tile)
+
+    sat = 32766
+    return {
+        K5_EDGE_LABELS[0]: sweep([size(20_000, 200)], size(300), 40,
+                                 size(6_000, 100), sat, 64),
+        K5_EDGE_LABELS[1]: sweep([5_000], size(400, 20), 6, 300, 3, 4096,
+                                 at=1_000),
+        K5_EDGE_LABELS[2]: sweep([size(3_000, 300)] * 2, size(500), 10,
+                                 size(2_000, 100), sat, 256, zero=0.3,
+                                 empty=0.2),
+        K5_EDGE_LABELS[3]: sweep([1000, 37, 5000, 1, 777], size(600), 12,
+                                 size(5_000, 500), sat, 512),
+    }
 
 
 # ------------------------------------------------------------------- helpers
@@ -651,16 +729,45 @@ def k4_check(torch, devconf, native, runs, mismatch_device, pool, lens,
     return ext, table, counts, first_out, n_runs, err
 
 
+def k5_check(torch, devconf, native, tile_device, host, cap, tile,
+             plain_device=None):
+    """K5 at ``tile`` on one sweep's host arguments (order, arena_off,
+    run_off, istart, iend): its levels against its plain version (on the
+    card, or on ``plain_device``) and the C sweep.  Returns (device
+    arguments, levels on the host, max abs error); raises on any
+    difference."""
+    dev = devconf.device()
+    args = [devconf.upload(a, dev) for a in host]
+    lv = tile_device.tile_sweep(*args, cap, tile)
+    plain_args = args if plain_device is None else [
+        torch.from_numpy(a).to(plain_device) for a in host]
+    lv_p = tile_device.tile_sweep_plain(*plain_args, cap).to(lv.device)
+    err = int((lv - lv_p).abs().max()) if lv.numel() else 0
+    if not torch.equal(lv, lv_p):
+        raise AssertionError("K5 != its plain version")
+    order, arena_off, run_off, istart, iend = host
+    size = int(arena_off.max(initial=0)) + int(iend.max(initial=0))
+    lv_c = np.full(len(run_off) - 1, 32767, dtype=np.int64)
+    native.tile_sweep(order, arena_off, run_off, istart, iend,
+                      np.zeros(max(size, 1), dtype=np.uint16), cap, lv_c)
+    lv_h = devconf.to_host_i64(lv)
+    if not np.array_equal(lv_h, lv_c):
+        raise AssertionError("K5 != native.tile_sweep")
+    return args, lv_h, err
+
+
 def k6_check(devconf, native, chain, chain_device, groups, costs,
-             plain=True):
-    """K6 on one launch's ``groups`` (one strand set, or an edge case):
-    (cs, pred) against the C DP group by group and, with ``plain``, against
-    its plain version on the card.  Returns (device arguments, the host
-    arguments, cs, max abs error); raises on any difference."""
+             plain=True, k=None):
+    """K6 on one launch's ``groups`` (both strand sets, or an edge case),
+    with ``k`` recent candidates (None: the default): (cs, pred) against
+    the C DP group by group and, with ``plain``, against its plain version
+    on the card.  Returns (device arguments, the host arguments, cs, max
+    abs error); raises on any difference."""
     dev = devconf.device()
     host = chain.dp_arguments(groups, costs[2])
     args = [devconf.upload(a, dev) for a in host]
-    cs, pred = chain_device.chain_dp_groups(*args, *costs)
+    cs, pred = chain_device.chain_dp_groups(
+        *args, *costs, k=k or chain_device.K6_RECENT)
     err = 0
     if plain:
         cs_p, pred_p = chain_device.chain_dp_groups_plain(*args, *costs)
@@ -762,11 +869,16 @@ def run(torch) -> dict:
         expect_pin(tag, out)
         log(f"launches during the port's {tag}: {launches[tag]}")
 
-    def launched(tag, names):
+    def launched(tag, names, once=()):
+        """Each kernel of ``names`` was launched by the port's ``tag``, and
+        each of ``once`` exactly once."""
         for k in names:
             if launches[tag][k] <= 0:
                 raise AssertionError(f"kernel {k} was not launched by the "
                                      f"port's {tag}")
+        for k in once:
+            expect_equal(f"{k} launches during the port's {tag}",
+                         launches[tag][k], 1)
 
     with tempfile.TemporaryDirectory(prefix="paffy_smoke_") as d:
         log("== synth")
@@ -883,39 +995,38 @@ def run(torch) -> dict:
             fh.write(tile_input(encoded))
         expect_pin("tile.paf", tpaf)
         drive("tile", ["tile", "-i", tpaf], os.path.join(d, "tiled.paf"))
-        launched("tile", ("tile_sweep",))
+        launched("tile", ("tile_sweep",), once=("tile_sweep",))
         with open(tpaf, "rb") as fh:
             tt = pafio.parse_paf_data(fh.read())
-        order = tile.tile_sort_order(tt)
-        arena_off, run_off, istart, iend, total = tile.sweep_arguments(tt)
-        k5_args = [devconf.upload(a, dev) for a in
-                   (order, arena_off, run_off, istart, iend)]
-        arena = torch.zeros(total, dtype=torch.int16, device=dev)
-        lv = tile_device.tile_sweep(*k5_args, arena)
-        arena_p = torch.zeros_like(arena)
-        lv_p = tile_device.tile_sweep_plain(*k5_args, arena_p)
-        k5_err = int((lv - lv_p).abs().max())
-        expect_equal("K5 levels == plain on the card", torch.equal(lv, lv_p),
-                     True)
-        expect_equal("K5 counts == plain on the card",
-                     torch.equal(arena, arena_p), True)
-        del arena_p
-        arena_c = np.zeros(total, dtype=np.uint16)
-        lv_c = np.full(len(tt), 32767, dtype=np.int64)
-        native.tile_sweep(order, arena_off, run_off, istart, iend, arena_c,
-                          SATURATION, lv_c)
-        lv_h = devconf.to_host_i64(lv)
-        expect_equal("K5 levels == C sweep", np.array_equal(lv_h, lv_c),
-                     True)
-        expect_equal("K5 counts == C sweep", np.array_equal(
-            devconf.download(arena).view(np.uint16), arena_c), True)
+        k5_host = (tile.tile_sort_order(tt), *tile.sweep_arguments(tt)[:4])
+        k5_args, lv_h, k5_err = k5_check(torch, devconf, native, tile_device,
+                                         k5_host, SATURATION,
+                                         tile_device.TILE)
+        log("ok: K5 levels == plain on the card == C sweep on tile_input")
         levels_seen = np.unique(lv_h)
         expect_equal("K5 levels span more than one value",
                      len(levels_seen) > 1, True)
+        istart, iend = k5_host[3], k5_host[4]
         n_bases = int((iend - istart).sum())
         n_iv = len(istart)
         log(f"tile: {len(tt)} records, {n_iv} intervals, {n_bases} aligned "
             f"bases, levels {levels_seen.tolist()}")
+        plan = tile_device.tile_plan(*k5_args)
+        log(f"K5 plan on tile_input at tile {tile_device.TILE}: "
+            f"{plan.tile_ids.numel()} tiles, {plan.pair_rec.numel()} (tile, "
+            f"record) pairs, histogram rows {4 * plan.n_bins} bytes")
+        for label, (*host, cap, tl) in k5_edge_cases().items():
+            for at in (tl, K5_EDGE_TILE):
+                *_, err = k5_check(torch, devconf, native, tile_device, host,
+                                   cap, at)
+                k5_err = max(k5_err, err)
+                plan = tile_device.tile_plan(
+                    *(devconf.upload(a, dev) for a in host), cap, at)
+                log(f"ok: K5 == plain == C sweep on its edge case {label} at "
+                    f"tile {at} (cap {cap}, {len(host[2]) - 1} records, "
+                    f"{len(host[3])} intervals, {plan.pair_rec.numel()} "
+                    f"(tile, record) pairs over {plan.tile_ids.numel()} "
+                    f"tiles)")
 
         log("== chain")
         cpaf = os.path.join(d, "chain.paf")
@@ -923,30 +1034,24 @@ def run(torch) -> dict:
             fh.write(chain_input(w))
         expect_pin("chain.paf", cpaf)
         drive("chain", ["chain", "-i", cpaf], os.path.join(d, "chained.paf"))
-        launched("chain", ("chain_dp",))
+        launched("chain", ("chain_dp",), once=("chain_dp",))
         with open(cpaf, "rb") as fh:
             tc = pafio.parse_paf_data(fh.read(), parse_cigars=False)
-        k6_full, k6_prefix = [], []
-        k6_err = k6_windows = k6_records = 0
-        for label, groups in zip("+-", chain.chain_groups(tc)):
-            args, host, cs, _ = k6_check(devconf, native, chain,
-                                         chain_device, groups, CHAIN_COSTS,
-                                         plain=False)
-            k6_full.append(args)
-            k6_windows += int(host[8].sum())
-            k6_records += len(host[1])
-            log(f"ok: K6 == C chain DP at full size, strand set {label}: "
-                f"groups of {np.diff(host[0]).tolist()} records, sum of "
-                f"window widths {int(host[8].sum())} (median "
-                f"{int(np.median(host[8]))}, max {int(host[8].max())}), "
-                f"largest chain score {int(cs.max())}")
-            prefix = [tuple(a[:K6_PREFIX] for a in g) for g in groups]
-            args, *_, err = k6_check(devconf, native, chain, chain_device,
-                                     prefix, CHAIN_COSTS)
-            k6_prefix.append(args)
-            k6_err = max(k6_err, err)
-            log(f"ok: K6 == plain on the card == C chain DP on the first "
-                f"{K6_PREFIX} records of each group, strand set {label}")
+        # both strand sets' groups in one launch, '+' first, as the chain
+        groups = [g for gs in chain.chain_groups(tc) for g in gs]
+        k6_full, host, cs, _ = k6_check(devconf, native, chain, chain_device,
+                                        groups, CHAIN_COSTS, plain=False)
+        k6_windows, k6_records = int(host[8].sum()), len(host[1])
+        log(f"ok: K6 == C chain DP at full size, both strand sets in one "
+            f"launch: groups of {np.diff(host[0]).tolist()} records, sum of "
+            f"window widths {k6_windows} (median {int(np.median(host[8]))}, "
+            f"max {int(host[8].max())}), largest chain score "
+            f"{int(cs.max())}")
+        prefix = [tuple(a[:K6_PREFIX] for a in g) for g in groups]
+        k6_prefix, *_, k6_err = k6_check(devconf, native, chain,
+                                         chain_device, prefix, CHAIN_COSTS)
+        log(f"ok: K6 == plain on the card == C chain DP on the first "
+            f"{K6_PREFIX} records of each group")
         for label, (groups, costs) in k6_edge_cases().items():
             _, host, _, err = k6_check(devconf, native, chain, chain_device,
                                        groups, costs)
@@ -954,6 +1059,14 @@ def run(torch) -> dict:
             log(f"ok: K6 == plain == C chain DP on its edge case {label} "
                 f"({len(groups)} groups, {int(host[0][-1])} records, "
                 f"widest window {int(host[8].max(initial=0))})")
+        for k in K6_OTHER_K:
+            k6_check(devconf, native, chain, chain_device, prefix,
+                     CHAIN_COSTS, plain=False, k=k)
+            for label, (groups, costs) in k6_edge_cases().items():
+                k6_check(devconf, native, chain, chain_device, groups, costs,
+                         plain=False, k=k)
+            log(f"ok: K6 at K = {k} == C chain DP on the prefixes and every "
+                f"edge case")
 
         log("== pipeline")
         steps = (("add_mismatches", [fa]), ("chain", []), ("tile", []),
@@ -965,8 +1078,25 @@ def run(torch) -> dict:
             src = out
         launched("pipeline add_mismatches", ("build_ext", "run_counts",
                                              "run_fill"))
-        launched("pipeline chain", ("chain_dp",))
-        launched("pipeline tile", ("tile_sweep",))
+        launched("pipeline chain", ("chain_dp",), once=("chain_dp",))
+        launched("pipeline tile", ("tile_sweep",), once=("tile_sweep",))
+        # K5 on the pipeline's tile input, the chained chain_input
+        with open(os.path.join(d, "pipe_chain.paf"), "rb") as fh:
+            tpc = pafio.parse_paf_data(fh.read())
+        k5_pipe_host = (tile.tile_sort_order(tpc),
+                        *tile.sweep_arguments(tpc)[:4])
+        t0 = time.perf_counter()
+        k5_pipe_args, _, err = k5_check(
+            torch, devconf, native, tile_device, k5_pipe_host, SATURATION,
+            tile_device.TILE, plain_device=torch.device("cpu"))
+        k5_err = max(k5_err, err)
+        plan = tile_device.tile_plan(*k5_pipe_args)
+        log(f"ok: K5 == plain (on the host) == C sweep on the pipeline's "
+            f"tile input, {len(tpc)} records ({time.perf_counter() - t0:.1f}"
+            f" s); at tile {tile_device.TILE}: {plan.tile_ids.numel()} "
+            f"tiles, {plan.pair_rec.numel()} (tile, record) pairs, "
+            f"histogram rows {4 * plan.n_bins} bytes")
+        del tpc, plan
         with open(cpaf, "rb") as fh:
             tp = pafio.parse_paf_data(fh.read())
         piped = measure("run_pipeline", lambda: runner.run_pipeline(
@@ -976,7 +1106,8 @@ def run(torch) -> dict:
             fh.write(pafio.serialize_paf_bytes(piped))
         expect_pin("run_pipeline", rp)
         launched("run_pipeline", ("build_ext", "run_counts", "run_fill",
-                                  "chain_dp", "tile_sweep"))
+                                  "chain_dp", "tile_sweep"),
+                 once=("chain_dp", "tile_sweep"))
         log(f"launches during run_pipeline: {launches['run_pipeline']}")
         log(f"run_pipeline: {len(tp)} records in "
             f"{walls['run_pipeline']:.4f} s, "
@@ -1084,22 +1215,14 @@ def run(torch) -> dict:
         def k4f():
             return runs.run_fill(ext, table4, first_out4, n_runs)
 
-        def k5():
-            arena.zero_()
-            return tile_device.tile_sweep(*k5_args, arena)
+        def k5(args, tl=tile_device.TILE):
+            return lambda: tile_device.tile_sweep(*args, SATURATION, tl)
 
-        def k5_plain():
-            arena.zero_()
-            return tile_device.tile_sweep_plain(*k5_args, arena)
-
-        def k6(sets):
-            # the K6 work of one chain run: one launch per strand set
-            return lambda: [chain_device.chain_dp_groups(*a, *CHAIN_COSTS)
-                            for a in sets]
-
-        def k6_plain():
-            return [chain_device.chain_dp_groups_plain(*a, *CHAIN_COSTS)
-                    for a in k6_prefix]
+        def k6(args, k=chain_device.K6_RECENT,
+               threads=chain_device.K6_THREADS):
+            # the K6 work of one chain run: one launch
+            return lambda: chain_device.chain_dp_groups(
+                *args, *CHAIN_COSTS, k=k, threads=threads)
 
         # K7: the (1,1) mesh's one launch; the (4,2) mesh's 8 launches
         tab7_d = devconf.upload(tab7, dev)
@@ -1123,8 +1246,10 @@ def run(torch) -> dict:
             "run_counts": (k4c, lambda: runs.run_counts_plain(ext, table4)),
             "run_fill": (k4f, lambda: runs.run_fill_plain(
                 ext, table4, first_out4, n_runs)),
-            "tile_sweep": (k5, k5_plain),
-            "chain_dp": (k6(k6_full), k6_plain),
+            "tile_sweep": (k5(k5_args), lambda: tile_device.tile_sweep_plain(
+                *k5_args)),
+            "chain_dp": (k6(k6_full), lambda: chain_device.
+                         chain_dp_groups_plain(*k6_prefix, *CHAIN_COSTS)),
             "group_stats": (
                 lambda: group_stats.group_stats(ext, tab7_d, *out7),
                 lambda: group_stats.group_stats_plain(ext, tab7_d, *out7)),
@@ -1134,11 +1259,13 @@ def run(torch) -> dict:
         # reads the pool (L) and writes ext (2L); K4 count reads 2 bytes
         # per column and 40 of table per piece and writes 4 per piece; the
         # fill reads the same plus 8 bytes of first index per piece and
-        # writes 9 bytes per run; K5 reads and writes 2 bytes of count per
-        # aligned base, reads 16 bytes per interval and 8 per record; K6
-        # reads 9 int64 per record (qs, ts, score, lo, w, pos; qe_s, te_s,
-        # idx_s) and writes 2 (cs, pred); K7 reads K1's bytes and writes 16
-        # per slot (match, cols) and 16 of totals
+        # writes 9 bytes per run; K5 reads 16 bytes per interval (istart,
+        # iend) and 8 each of run_off, arena_off and the order per record,
+        # and writes 8 of level per record (its counts are the kernel's own
+        # and never need to leave the chip); K6 reads 9 int64 per record
+        # (qs, ts, score, lo, w, pos; qe_s, te_s, idx_s) and writes 2 (cs,
+        # pred); K7 reads K1's bytes and writes 16 per slot (match, cols)
+        # and 16 of totals
         nbytes = {
             "piece_compare": 2 * n_cols + table_np.nbytes + 8 * len(t),
             "build_ext": 3 * raw.numel(),
@@ -1146,23 +1273,20 @@ def run(torch) -> dict:
                            + 4 * n_pieces4),
             "run_fill": (2 * n_cols + table4.numel() * 8 + 8 * n_pieces4
                          + 9 * n_runs),
-            "tile_sweep": 4 * n_bases + 16 * n_iv + 8 * len(tt),
+            "tile_sweep": 16 * n_iv + 32 * len(tt),
             "chain_dp": 88 * k6_records,
             "group_stats": 2 * n_cols + tab7.nbytes + 16 * b1.rec_pad + 16,
         }
         n_ops = {"chain_dp": K6_OPS_PER_CANDIDATE * k6_windows}
-        slow = {"tile_sweep", "chain_dp"}
         ms, row_ms, in_a_row, plain_ms, bound_ms, bound_by = (
             {}, {}, {}, {}, {}, {})
         for name, (fn, plain) in timed.items():
-            ms[name] = cuda_ms(torch, fn, reps=5 if name in slow else 20)
+            ms[name] = cuda_ms(torch, fn, reps=20)
             # 20 in a row, unless 3 batches of 20 would pass 15 s
             in_a_row[name] = (20 if ms[name] <= 250 else
                               max(2, int(15_000 / (3 * ms[name]))))
-            row_ms[name] = cuda_ms(torch, fn, reps=3 if name in slow else 7,
-                                   batch=in_a_row[name])
-            plain_ms[name] = cuda_ms(torch, plain,
-                                     reps=3 if name in slow else 5, warm=1)
+            row_ms[name] = cuda_ms(torch, fn, reps=7, batch=in_a_row[name])
+            plain_ms[name] = cuda_ms(torch, plain, reps=5, warm=1)
             by_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
             by_ops = n_ops.get(name, 0) / INT32_OPS_PER_S * 1e3
             bound_ms[name] = max(by_bytes, by_ops)
@@ -1182,17 +1306,35 @@ def run(torch) -> dict:
             f"a row, against {row_ms['group_stats']:.4f} ms for the (1,1) "
             f"mesh's one launch")
         k6_prefix_ms = cuda_ms(torch, k6(k6_prefix), reps=5)
-        k6_plain_records = sum(int(a[1].numel()) for a in k6_prefix)
+        k6_plain_records = int(k6_prefix[1].numel())
         log(f"chain_dp on the prefix ({k6_plain_records} records, where "
             f"plain_ms is taken): {k6_prefix_ms:.4f} ms; at full size "
             f"{k6_records} records, {k6_windows} candidates in the windows, "
             f"{K6_OPS_PER_CANDIDATE} integer operations each")
+        sweep_ms = {}
+        for k in K6_SWEEP_K:
+            for threads in K6_SWEEP_THREADS:
+                sweep_ms[f"chain_dp K={k} threads={threads}"] = cuda_ms(
+                    torch, k6(k6_full, k, threads), reps=5)
+        for tl in K5_TILES:
+            for what, args in (("tile_input", k5_args),
+                               ("the pipeline's tile input", k5_pipe_args)):
+                sweep_ms[f"tile_sweep tile={tl} on {what}"] = cuda_ms(
+                    torch, k5(args, tl), reps=7)
+        for what, args in (("tile_input", k5_args),
+                           ("the pipeline's tile input", k5_pipe_args)):
+            sweep_ms[f"tile_sweep's plan alone on {what}"] = cuda_ms(
+                torch, lambda: tile_device.tile_plan(*args), reps=7)
+        for what, t_ms in sweep_ms.items():
+            log(f"{what}: {t_ms:.4f} ms one call at a time")
         log(f"K1 over {n_cols} columns, {n_pieces} pieces; K2 over "
             f"{raw.numel()} pool bytes; K4 over {n_cols} columns, "
             f"{n_pieces4} pieces, {n_runs} runs; K5 over {len(tt)} records, "
-            f"{n_iv} intervals, {n_bases} aligned bases (the arena's memset "
-            f"of {2 * total} bytes is inside K5's timed window); K6 over "
-            f"{k6_records} records in {len(k6_full)} launches")
+            f"{n_iv} intervals, {n_bases} aligned bases (the old kernel's "
+            f"count traffic, 4 bytes per aligned base, would be "
+            f"{4 * n_bases / HBM_BYTES_PER_S * 1e3:.4f} ms more at 3.35 "
+            f"TB/s), its plan inside its timed call; K6 over {k6_records} "
+            f"records in one launch")
         for tag in walls:
             split = ", ".join(f"{k} {v:.4f}" for k, v in
                               phase_split[tag].items())
@@ -1222,11 +1364,13 @@ def run(torch) -> dict:
                "run_counts": "add_mismatches", "run_fill": "add_mismatches",
                "tile_sweep": "tile", "chain_dp": "chain",
                "group_stats": "column_counts_multichip 1x1"}
-    # K6's timed call is one chain run's two launches (one per strand
-    # set); its plain version runs on the prefix only
-    extra = {"chain_dp": {"launches_per_timed_call": len(k6_full),
-                          "plain_records": k6_plain_records,
-                          "ms_at_plain_records": k6_prefix_ms},
+    # K6's plain version runs on the prefix only
+    sweeps = {name: {k: v for k, v in sweep_ms.items() if k.startswith(name)}
+              for name in ("tile_sweep", "chain_dp")}
+    extra = {"tile_sweep": {"sweep_ms": sweeps["tile_sweep"]},
+             "chain_dp": {"plain_records": k6_plain_records,
+                          "ms_at_plain_records": k6_prefix_ms,
+                          "sweep_ms": sweeps["chain_dp"]},
              "group_stats": {"ms_8_slots_in_a_row": k7_slots_ms,
                              "slot_launches": len(slot_args)}}
     return {"kernels": [

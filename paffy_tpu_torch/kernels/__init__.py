@@ -27,17 +27,19 @@ raises on non-zero):
     int paffy_run_fill(int dev, const u8* ext, i64 ext_len, const i64* table,
                        i64 n_pieces, const i64* first_out, i64* starts,
                        u8* states, cudaStream_t s)
-    int paffy_tile_sweep(int dev, i64 n_seqs, const i64* seq_off,
-                         const i64* order, const i64* arena_off,
-                         const i64* run_off, const i64* istart,
-                         const i64* iend, u16* arena, i64 cap, i64* levels,
-                         cudaStream_t s)
+    int paffy_tile_sweep(int dev, i64 n_tiles, const i64* tile_ids,
+                         const i64* pair_off, const i64* pair_rec,
+                         const i64* arena_off, const i64* run_off,
+                         const i64* istart, const i64* iend,
+                         const i64* row_off, u32* hist, i64 n_records,
+                         i64 cap, i64 tile, i64* levels, cudaStream_t s)
     int paffy_chain_dp(int dev, i64 n_groups, const i64* goff, const i64* qs,
                        const i64* ts, const i64* score, const i64* qe_s,
                        const i64* te_s, const i64* idx_s, const i64* lo,
                        const i64* w, const i64* pos, i64 gap_open,
-                       i64 gap_extend, i64 max_gap, i64* cs_sorted,
-                       i64* cs, i64* pred, cudaStream_t s)
+                       i64 gap_extend, i64 max_gap, i64 k, i64 ring,
+                       i64 threads, i64* cs_sorted, i64* cs, i64* pred,
+                       cudaStream_t s)
     int paffy_group_stats(int dev, const u8* ext, i64 ext_len,
                           const i64* table, i64 n_pieces, u64* match,
                           u64* cols, u64* totals, cudaStream_t s)
@@ -164,10 +166,10 @@ def load() -> ctypes.CDLL:
             lib.paffy_run_counts.argtypes = [dev, vp, i64, vp, i64, vp, vp]
             lib.paffy_run_fill.argtypes = [dev, vp, i64, vp, i64, vp, vp, vp,
                                            vp]
-            lib.paffy_tile_sweep.argtypes = [dev, i64, vp, vp, vp, vp, vp, vp,
-                                             vp, i64, vp, vp]
-            lib.paffy_chain_dp.argtypes = [dev, i64, *[vp] * 10, i64, i64,
-                                           i64, vp, vp, vp, vp]
+            lib.paffy_tile_sweep.argtypes = [dev, i64, *[vp] * 9, i64, i64,
+                                             i64, vp, vp]
+            lib.paffy_chain_dp.argtypes = [dev, i64, *[vp] * 10, *[i64] * 6,
+                                           vp, vp, vp, vp]
             lib.paffy_group_stats.argtypes = [dev, vp, i64, vp, i64, vp, vp,
                                               vp, vp]
             for fn in (lib.paffy_build_ext, lib.paffy_piece_counts,

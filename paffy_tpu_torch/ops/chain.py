@@ -21,12 +21,13 @@ first), each walking its predecessor links until a claimed record; members
 are written head first, chain ids in extraction order, and the chain total
 is recomputed along the surviving links (impl/chaining.c:88-113, 216-233).
 
-The DP runs on the device, always: one K6 launch per strand set over all
-its groups (ops/chain_device.chain_groups_device, arguments from
-``dp_arguments``), or with ``dp_many`` = chain_groups_device over a mesh,
-one launch per data row of the mesh.  There is no per-group host route and
-no size routing; the C DP (native.chain_dp) is a reference for the tests
-and chip_smoke.py.
+The DP runs on the device, always: one K6 launch over the groups of both
+strand sets (ops/chain_device.chain_groups_device, arguments from
+``dp_arguments``; the '-' set's DP does not depend on the '+' set's, only
+its chain ids do, at extraction), or with ``dp_many`` = chain_groups_device
+over a mesh, one launch per data row of the mesh.  There is no per-group
+host route and no size routing; the C DP (native.chain_dp) is a reference
+for the tests and chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -111,59 +112,51 @@ def _strand_set_groups(t: PafTable, sel, qs, qe, ts, te):
     return idx, perm, goff, groups
 
 
-def _chain_strand_set(t: PafTable, sel, qs, qe, ts, te, gap_open: int,
-                      gap_extend: int, max_gap: int, chain_id_start: int,
-                      dp_many=None):
-    """Chain the records ``sel`` (one strand set, mirrored coordinates):
-    (the records in output order, their chain ids, their chain scores, the
-    next chain id).  ``dp_many`` solves the DP of a list of (qs, qe, ts,
-    te, score) groups into a list of (chain_score, pred) (default:
-    chain_groups_device, one K6 launch on devconf.device())."""
-    n = len(sel)
+def _extract_chains(t: PafTable, idx, perm, goff, results, qs, qe, ts, te,
+                    gap_open: int, gap_extend: int, chain_id_start: int):
+    """The chains of one strand set from its groups' DP ``results`` (a list
+    of (chain_score, pred) per group of ``_strand_set_groups``' (idx,
+    perm, goff)): (the records in output order, their chain ids, their
+    chain scores, the next chain id)."""
+    n = len(idx)
     if n == 0:
         return (np.zeros(0, dtype=np.int64),) * 3 + (chain_id_start,)
-    with phases.timed("window"):
-        idx, perm, goff, groups = _strand_set_groups(t, sel, qs, qe, ts, te)
-    results = (dp_many or chain_groups_device)(groups, gap_open, gap_extend,
-                                               max_gap)
-    with phases.timed("extract"):
-        # each group's results back to processing positions
-        cs = np.empty(n, dtype=np.int64)
-        pred = np.full(n, -1, dtype=np.int64)
-        for (gcs, gpred), a, b in zip(results, goff[:-1], goff[1:]):
-            members = perm[a:b]
-            cs[members] = gcs
-            pred[members] = np.where(gpred >= 0,
-                                     members[np.clip(gpred, 0, None)], -1)
-        sqs, sqe, sts, ste, sscore = (
-            a[idx].tolist() for a in (qs, qe, ts, te, t.score))
-        pred_l = pred.tolist()
-        claimed = [False] * n
-        members_out: list[int] = []
-        ids_out: list[int] = []
-        scores_out: list[int] = []
-        next_id = chain_id_start
-        # greedy extraction, best chain score first (ties: latest processed)
-        for r in np.lexsort((-np.arange(n), -cs)).tolist():
-            if claimed[r]:
-                continue
-            members = [r]
-            claimed[r] = True
-            p = pred_l[r]
-            while p >= 0 and not claimed[p]:
-                claimed[p] = True
-                members.append(p)
-                p = pred_l[p]
-            # the total along the surviving links (get_chain_score)
-            total = sscore[members[0]]
-            for a, b in zip(members[:-1], members[1:]):
-                total += sscore[b] - _gap_cost(sqs[a] - sqe[b],
-                                               sts[a] - ste[b], gap_open,
-                                               gap_extend)
-            members_out += members
-            ids_out += [next_id] * len(members)
-            scores_out += [total] * len(members)
-            next_id += 1
+    # each group's results back to processing positions
+    cs = np.empty(n, dtype=np.int64)
+    pred = np.full(n, -1, dtype=np.int64)
+    for (gcs, gpred), a, b in zip(results, goff[:-1], goff[1:]):
+        members = perm[a:b]
+        cs[members] = gcs
+        pred[members] = np.where(gpred >= 0,
+                                 members[np.clip(gpred, 0, None)], -1)
+    sqs, sqe, sts, ste, sscore = (
+        a[idx].tolist() for a in (qs, qe, ts, te, t.score))
+    pred_l = pred.tolist()
+    claimed = [False] * n
+    members_out: list[int] = []
+    ids_out: list[int] = []
+    scores_out: list[int] = []
+    next_id = chain_id_start
+    # greedy extraction, best chain score first (ties: latest processed)
+    for r in np.lexsort((-np.arange(n), -cs)).tolist():
+        if claimed[r]:
+            continue
+        members = [r]
+        claimed[r] = True
+        p = pred_l[r]
+        while p >= 0 and not claimed[p]:
+            claimed[p] = True
+            members.append(p)
+            p = pred_l[p]
+        # the total along the surviving links (get_chain_score)
+        total = sscore[members[0]]
+        for a, b in zip(members[:-1], members[1:]):
+            total += sscore[b] - _gap_cost(sqs[a] - sqe[b], sts[a] - ste[b],
+                                           gap_open, gap_extend)
+        members_out += members
+        ids_out += [next_id] * len(members)
+        scores_out += [total] * len(members)
+        next_id += 1
     return (idx[np.array(members_out, dtype=np.int64)],
             np.array(ids_out, dtype=np.int64),
             np.array(scores_out, dtype=np.int64), next_id)
@@ -189,7 +182,8 @@ def _chain_coordinates(t: PafTable, pct_trim: float):
 
 def chain_groups(t: PafTable, pct_trim: float = 1.0) -> list[list[tuple]]:
     """The DP groups of the '+' and of the '-' strand set of ``t``, as
-    ``paf_chain_order`` hands them to K6 (for checks against the C DP)."""
+    ``paf_chain_order`` hands them, '+' first, to one K6 launch (for checks
+    against the C DP)."""
     coords = _chain_coordinates(t, pct_trim)
     return [_strand_set_groups(t, sel, *coords)[3]
             for sel in (np.flatnonzero(t.strand), np.flatnonzero(~t.strand))]
@@ -200,7 +194,7 @@ def paf_chain(t: PafTable, gap_open: int = 5000, gap_extend: int = 1,
               dp_many=None) -> PafTable:
     """Chain a batch of records (paf_chain, impl/chaining.c:266-343); the
     default costs are paffy chain's (impl/paf_chain.c:17-20,36-45).
-    ``dp_many`` replaces the DP solver (see _chain_strand_set)."""
+    ``dp_many`` replaces the DP solver (see paf_chain_order)."""
     tagged, perm = paf_chain_order(t, gap_open=gap_open,
                                    gap_extend=gap_extend, max_gap=max_gap,
                                    pct_trim=pct_trim, dp_many=dp_many)
@@ -213,24 +207,37 @@ def paf_chain_order(t: PafTable, gap_open: int = 5000, gap_extend: int = 1,
     """paf_chain without reordering the table: (tagged, perm), the input
     with its cn and s1 tags set, in input order, and the output order
     (descending score, stable, impl/chaining.c:337).  Writing ``tagged``
-    in ``perm`` order gives paf_chain's bytes without copying the cigars."""
-    qs, qe, ts, te = _chain_coordinates(t, pct_trim)
+    in ``perm`` order gives paf_chain's bytes without copying the cigars.
+    ``dp_many`` solves the DP of a list of (qs, qe, ts, te, score) groups
+    into a list of (chain_score, pred) (default: chain_groups_device, one
+    K6 launch on devconf.device()); it is called once, with the groups of
+    both strand sets."""
+    coords = _chain_coordinates(t, pct_trim)
     n = len(t)
     if n == 0:
         return t, None
-    o1, id1, cs1, nxt = _chain_strand_set(t, np.flatnonzero(t.strand), qs,
-                                          qe, ts, te, gap_open, gap_extend,
-                                          max_gap, 0, dp_many)
-    o2, id2, cs2, _ = _chain_strand_set(t, np.flatnonzero(~t.strand), qs,
-                                        qe, ts, te, gap_open, gap_extend,
-                                        max_gap, nxt, dp_many)
-    order = np.concatenate([o1, o2])
+    with phases.timed("window"):
+        sets = [_strand_set_groups(t, sel, *coords)
+                for sel in (np.flatnonzero(t.strand),
+                            np.flatnonzero(~t.strand))]
+    # one DP call over both strand sets' groups, '+' first
+    results = (dp_many or chain_groups_device)(
+        [g for s in sets for g in s[3]], gap_open, gap_extend, max_gap)
+    outs, nxt = [], 0
+    with phases.timed("extract"):
+        for idx, perm, goff, groups in sets:
+            *out, nxt = _extract_chains(t, idx, perm, goff,
+                                        results[: len(groups)], *coords,
+                                        gap_open, gap_extend, nxt)
+            results = results[len(groups):]
+            outs.append(out)
+    order, ids, scores = (np.concatenate(x) for x in zip(*outs))
     # the tags go back to the input positions (the reference sets them on
     # the records in place, chain_to_pafs :115-131)
     cid = np.full(n, -1, dtype=np.int64)
     cscore = np.full(n, -1, dtype=np.int64)
-    cid[order] = np.concatenate([id1, id2])
-    cscore[order] = np.concatenate([cs1, cs2])
+    cid[order] = ids
+    cscore[order] = scores
     tagged = replace(t, chain_id=cid, chain_score=cscore)
     paf_check(tagged)
     # descending score, stable over the strand sets' concatenation

@@ -18,8 +18,11 @@ otherwise; pred[i] is the best j, ties going to the largest (te[j], qe[j],
 j), or -1 when no candidate beats score[i].  Every index is a slot.
 
 On a CUDA tensor the wrapper launches the CUDA kernel (csrc/chain_dp.cu),
-one block per group; on a CPU tensor it runs the plain PyTorch version
-below, a loop over the records.  ``chain_groups_device`` drives it for a
+one block per group: a walker warp that takes the K most recent candidates
+of each record itself, and helper warps that reduce the older ones ahead
+of it; on a CPU tensor it runs the plain PyTorch version below, a loop
+over the records.  ``chain_dp_split_plain`` is the plain emulation of that
+split, for the tests.  ``chain_groups_device`` drives the wrapper for a
 list of groups: one launch on ``devconf.device()``, or one per data row of
 a mesh (parallel/pipeline.py).
 """
@@ -32,6 +35,30 @@ import torch
 from paffy_tpu_torch import devconf, kernels, phases
 
 NEG = -(1 << 62)      # "no candidate", as paffy_tpu's _NEG
+K6_RECENT = 32        # K: the recent candidates the walker checks itself
+K6_THREADS = 512      # a block: the walker warp and 15 helper warps
+K6_MAX_RECENT = 256   # the ring of 2K+ slots stays within shared memory
+
+
+def ring_slots(k: int) -> int:
+    """Slots of the kernel's ring for ``k`` recent candidates: the least
+    power of two above 2k (the walker reads records i - k .. i while the
+    helpers fill them up to i + k)."""
+    return 1 << (2 * k).bit_length()
+
+
+def _best(val, te, qe, idx):
+    """(val, te, qe, idx) of the largest key (val, te, qe, idx) of the
+    candidates given (val NEG where there is none), by nested maxima as
+    _dp_scan :61-67; (NEG, NEG, NEG, -1) without a candidate."""
+    if not val.numel() or int(val.max()) == NEG:
+        return NEG, NEG, NEG, -1
+    tie = val == val.max()
+    t = int(torch.where(tie, te, NEG).max())
+    tie &= te == t
+    q = int(torch.where(tie, qe, NEG).max())
+    tie &= qe == q
+    return int(val.max()), t, q, int(torch.where(tie, idx, -1).max())
 
 
 def chain_dp_groups_plain(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
@@ -66,11 +93,51 @@ def chain_dp_groups_plain(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
     return cs, pred
 
 
+def chain_dp_split_plain(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
+                         gap_open: int, gap_extend: int, max_gap: int,
+                         k: int = K6_RECENT):
+    """Plain PyTorch emulation of the kernel's split: for each record i,
+    the best old candidate (window slots whose record j < i - k, against
+    the chain scores in query-end order) and the best recent one (j in
+    [i - k, i), in the window iff lo[i] <= pos[j] < lo[i] + w[i]), merged
+    by the key (val, te, qe, j).  Equals ``chain_dp_groups_plain``."""
+    n = qs.numel()
+    cs = score.clone()
+    pred = torch.full((n,), -1, dtype=torch.int64, device=qs.device)
+    cs_sorted = torch.full((n,), NEG, dtype=torch.int64, device=qs.device)
+    lo_l, w_l, pos_l = lo.tolist(), w.tolist(), pos.tolist()
+    qs_l, ts_l, sc_l = qs.tolist(), ts.tolist(), score.tolist()
+    for i in range(n):
+        a, b, s = lo_l[i], lo_l[i] + w_l[i], sc_l[i]
+
+        def vals(slots, j):
+            # the candidates' values (NEG where a test fails) and keys
+            qe, te = qe_s[slots], te_s[slots]
+            tgap = ts_l[i] - te
+            gap = (qs_l[i] - qe) + tgap
+            g = torch.where(gap == 0, 0, gap_open + gap_extend * gap)
+            ok = (tgap >= 0) & (tgap <= max_gap) & (g < s)
+            return torch.where(ok, s + cs_sorted[slots] - g, NEG), te, qe, j
+        old = torch.arange(a, b, device=qs.device)
+        old = old[idx_s[old] < i - k]
+        recent = torch.arange(max(i - k, 0), i, device=qs.device)
+        recent = recent[(pos[recent] >= a) & (pos[recent] < b)]
+        best = max(_best(*vals(old, idx_s[old])),
+                   _best(*vals(pos[recent], recent)))
+        if best[3] >= 0 and best[0] > s:
+            cs[i], pred[i] = best[0], best[3]
+        cs_sorted[pos_l[i]] = cs[i]
+    return cs, pred
+
+
 def chain_dp_groups(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
-                    gap_open: int, gap_extend: int, max_gap: int):
+                    gap_open: int, gap_extend: int, max_gap: int,
+                    k: int = K6_RECENT, threads: int = K6_THREADS):
     """(cs, pred), int64 [n] in processing slots: the CUDA kernel for CUDA
     tensors, the plain version for CPU tensors.  Every argument is a 1-D
-    int64 tensor of n elements on one device, but ``goff`` (groups + 1)."""
+    int64 tensor of n elements on one device, but ``goff`` (groups + 1).
+    ``k`` (1..K6_MAX_RECENT) is the kernel's count of recent candidates,
+    ``threads`` (64..512, a multiple of 32) its block size."""
     args = (goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos)
     if any(x.dtype != torch.int64 or x.dim() != 1 for x in args):
         raise ValueError("every argument of chain_dp_groups must be a 1-D "
@@ -82,6 +149,10 @@ def chain_dp_groups(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
                          f"element; got {[x.numel() for x in args]}")
     if any(x.device != qs.device for x in args):
         raise ValueError("every tensor must be on one device")
+    if not 1 <= k <= K6_MAX_RECENT or threads % 32 or \
+            not 64 <= threads <= 512:
+        raise ValueError(f"k must be in [1, {K6_MAX_RECENT}] and threads a "
+                         f"multiple of 32 in [64, 512]; got {k}, {threads}")
     if qs.device.type == "cpu":
         return chain_dp_groups_plain(*args, gap_open, gap_extend, max_gap)
     dev = kernels.check_device(qs.device)
@@ -93,8 +164,9 @@ def chain_dp_groups(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
     args = [x.contiguous() for x in args]
     rc = kernels.load().paffy_chain_dp(
         dev, goff.numel() - 1, *(x.data_ptr() for x in args), gap_open,
-        gap_extend, max_gap, cs_sorted.data_ptr(), cs.data_ptr(),
-        pred.data_ptr(), kernels.stream_of(cs))
+        gap_extend, max_gap, k, ring_slots(k), threads,
+        cs_sorted.data_ptr(), cs.data_ptr(), pred.data_ptr(),
+        kernels.stream_of(cs))
     kernels.check(rc, "chain_dp")
     kernels.LAUNCHES["chain_dp"] += 1
     return cs, pred

@@ -12,17 +12,18 @@ The sweep runs on the device, always (K5, ops/tile_device.py).  Unlike
 paffy_tpu, the port packs no coverage segments (``_sequence_offsets``),
 builds no padded [N, K] interval tensor and has no TILE_K_CAP or
 TILE_DEVICE_WORK_CAP host route: the kernel reads the intervals in CSR
-form (``run_off``, ``istart``, ``iend`` from ``match_intervals``) and one
-count arena with each distinct query sequence's counts end to end,
-exactly the arguments of the C sweep (native.tile_sweep).  On a mesh
-(``assign_tile_levels_sharded``), the distinct query sequences are cut
-into blocks over the mesh's data rows, each with its own arena.
+form (``run_off``, ``istart``, ``iend`` from ``match_intervals``) and each
+record's offset into one position space with each distinct query
+sequence's positions end to end, the arguments of the C sweep
+(native.tile_sweep) but its arena: the kernel keeps its counts on the
+chip.  On a mesh (``assign_tile_levels_sharded``), the distinct query
+sequences are cut into blocks over the mesh's data rows, each with its own
+position space.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from paffy_tpu_torch import devconf, phases
 from paffy_tpu_torch.core.model import PafTable
@@ -70,7 +71,8 @@ def assign_tile_levels_sharded(t: PafTable, order: np.ndarray, mesh=None,
     sequences, in first-seen order, are cut into ``data`` contiguous blocks
     of ceil(S / data) (paffy_tpu's contiguous blocks of coverage segments
     play this part), and each block's records, in ``order``, run in one K5
-    launch on its row's first device over an arena of its own sequences.
+    launch on its row's first device over the positions of its own
+    sequences.
     Records on different sequences commute, so the levels do not depend on
     the mesh.  Without one, all sequences are one block on
     ``devconf.device()``."""
@@ -80,32 +82,30 @@ def assign_tile_levels_sharded(t: PafTable, order: np.ndarray, mesh=None,
     rows = ([devconf.device()] if mesh is None
             else [row[0] for row in mesh.devices])
     with phases.timed("intervals"):
-        arena_off, run_off, istart, iend, total = sweep_arguments(t)
+        arena_off, run_off, istart, iend, _ = sweep_arguments(t)
         # the sequences by arena offset, which ascends in first-seen order
         # (a sequence of no bases shares the next one's and goes with it)
         seq_off, seq_of = np.unique(arena_off, return_inverse=True)
         size = -(-len(seq_off) // len(rows))
-        bounds = np.append(seq_off[::size], total)
+        starts = seq_off[::size]
         block = seq_of // size
         order = np.asarray(order, dtype=np.int64)
     levels = np.full(n, EMPTY_TILE_LEVEL, dtype=np.int64)
     shared: dict = {}                  # the CSR arguments on each device
     launched = []
-    for b, dev in enumerate(rows[: len(bounds) - 1]):
-        lo, hi = int(bounds[b]), int(bounds[b + 1])
+    for b, dev in enumerate(rows[: len(starts)]):
         sub = order[block[order] == b]
         with phases.timed("upload", dev):
             if dev not in shared:
                 shared[dev] = [devconf.upload(a, dev)
                                for a in (run_off, istart, iend)]
-            # the block's arena starts at its first sequence; records of
+            # the block's positions start at its first sequence; records of
             # other blocks are not in its order, so their offsets are unread
-            args = [devconf.upload(a, dev) for a in (sub, arena_off - lo)]
-            arena = torch.zeros(max(hi - lo, 1), dtype=torch.int16,
-                                device=dev)
+            args = [devconf.upload(a, dev)
+                    for a in (sub, arena_off - int(starts[b]))]
         with phases.timed("K5"):
             launched.append((sub, tile_sweep(args[0], args[1], *shared[dev],
-                                             arena, cap)))
+                                             cap)))
     with phases.timed("K5"):          # ends with the readbacks
         for sub, lv in launched:
             levels[sub] = devconf.to_host_i64(lv)[sub]

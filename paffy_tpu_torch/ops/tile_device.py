@@ -2,36 +2,173 @@
 paffy_tpu/ops/tile_device.py: ``_tile_scan`` :23, ``_tile_scan_groups``
 :78).
 
-``tile_sweep`` takes the arguments of the C sweep (native.tile_sweep), as
-tensors: the processing order, each record's offset into one count arena
-(each distinct query sequence's counts laid end to end), the records'
-aligned query intervals in CSR form (run_off, istart, iend), the arena and
-the saturation cap.  It adds each record's bases into the arena in order,
-saturating at the cap, and returns the levels: the ((n+1)//2)-th smallest
-of a record's n new counts, or EMPTY_TILE_LEVEL without an aligned base.
-The arena is int16 on the PyTorch side (every count is <= 32766, so its
-bits are the uint16 counts the reference keeps) and is updated in place.
+``tile_sweep`` takes the arguments of the C sweep (native.tile_sweep)
+without its arena, as tensors: the processing order, each record's offset
+into one position space (each distinct query sequence's positions laid end
+to end) and the records' aligned query intervals in CSR form (run_off,
+istart, iend; a record's intervals disjoint and ascending, as
+native.match_intervals gives them).  Taken in order, each record adds one
+to the count of each of its bases, saturating at the cap; it returns the
+levels: the ((n+1)//2)-th smallest of a record's n new counts, or
+EMPTY_TILE_LEVEL without an aligned base or outside the order.
 
-On a CUDA tensor the wrapper groups the order by sequence (stable: records
-on different query sequences commute) and launches the CUDA kernel
-(csrc/tile_sweep.cu), one block per query sequence; on a CPU tensor it
-runs the plain PyTorch version below, a loop over the records.
+On a CUDA tensor the wrapper builds the tile plan (``tile_plan``, torch
+ops on the card) and launches the CUDA kernel (csrc/tile_sweep.cu): one
+block per tile of ``tile`` positions, its counts in shared memory, and a
+histogram row per record in device memory from which a second kernel takes
+the medians.  On a CPU tensor it runs ``tile_sweep_plain``, the sequential
+sweep over one count arena.  ``tile_sweep_tiled_plain`` is the plain
+emulation of the kernel's decomposition, for the tests.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from paffy_tpu_torch import kernels
+from paffy_tpu_torch import kernels, phases
 from paffy_tpu_torch.ops.coverage import EMPTY_TILE_LEVEL, SATURATION
 
+TILE = 8192             # positions per tile: 16 KB of counts per block
+MAX_TILE = 65536        # 128 KB of counts, within a block's shared memory
+# bytes of histogram rows one launch may take; rows are 4 bytes per count
+# value a record can reach (tile_plan)
+HIST_BUDGET = 1 << 30
 
-def tile_sweep_plain(order, arena_off, run_off, istart, iend, arena,
-                     cap: int = SATURATION) -> torch.Tensor:
-    """Plain PyTorch K5: one record at a time, its bases gathered from its
-    intervals, incremented, written back and their k-th value taken."""
+
+class TilePlan(NamedTuple):
+    """K5's work list.  ``tile_ids``: the tiles that some record touches,
+    ascending; ``pair_off``: CSR over them of ``pair_rec``, the records
+    whose span meets each tile, in processing order; ``row_off``: each
+    record's histogram row (n + 1 offsets, rows of B_r bins, B_r = 0 for a
+    record outside the order or without a span); ``n_bins``: their
+    total."""
+    tile_ids: torch.Tensor
+    pair_off: torch.Tensor
+    pair_rec: torch.Tensor
+    row_off: torch.Tensor
+    n_bins: int
+
+
+def tile_plan(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
+              tile: int = TILE) -> TilePlan:
+    """The (tile, record) pairs of a sweep, on the arguments' device.
+
+    A record's span runs from its first interval's start to its last
+    interval's end (the intervals ascend), offset by arena_off; it meets
+    the tiles span_lo // tile .. (span_hi - 1) // tile.  The pairs are
+    made in processing order and sorted stably by tile.  A record's new
+    count at a position is 1 + the earlier records covering it, each of
+    them an earlier pair of that position's tile, so it is at most
+    B_r = min(cap, max over r's pairs of 1 + its rank in the tile): r's row
+    has B_r bins.  Raises ValueError when ``order`` repeats a record or
+    leaves [0, n), and when the rows would pass HIST_BUDGET bytes."""
+    dev = order.device
+    n, n_iv = run_off.numel() - 1, istart.numel()
+    if n == 0 and order.numel():
+        raise ValueError("order must list distinct records of [0, n)")
+    z = torch.zeros(1, dtype=torch.int64, device=dev)
+    # indexed in range before the check, which shares the first readback
+    rec = order.clamp(0, max(n - 1, 0))
+    bad_order = ((order < 0) | (order >= n)).sum() + (
+        torch.bincount(rec, minlength=n) > 1).sum()
+    a, e = run_off[rec], run_off[rec + 1]
+    has = e > a
+    if n_iv:
+        base = arena_off[rec]
+        lo = base + istart[a.clamp(max=n_iv - 1)]
+        hi = base + iend[(e - 1).clamp(min=0)]
+        has &= hi > lo
+    else:
+        lo = hi = a
+    t_lo = torch.div(lo, tile, rounding_mode="floor")
+    t_hi = torch.div(hi - 1, tile, rounding_mode="floor")
+    cnt = torch.where(has, t_hi - t_lo + 1, 0)
+    n_pairs, bad = torch.stack([cnt.sum(), bad_order]).tolist()
+    if bad:
+        raise ValueError("order must list distinct records of [0, n)")
+    first = torch.cumsum(cnt, 0) - cnt
+    rank = torch.repeat_interleave(torch.arange(order.numel(), device=dev),
+                                   cnt, output_size=n_pairs)
+    tile_of = (t_lo[rank] - first[rank]
+               + torch.arange(n_pairs, dtype=torch.int64, device=dev))
+    tile_sorted, perm = torch.sort(tile_of, stable=True)
+    pair_rec = rec[rank[perm]]
+    tile_ids, per_tile = torch.unique_consecutive(tile_sorted,
+                                                  return_counts=True)
+    pair_off = torch.cat([z, torch.cumsum(per_tile, 0)])
+    in_tile = (torch.arange(n_pairs, device=dev) - torch.repeat_interleave(
+        pair_off[:-1], per_tile, output_size=n_pairs))
+    bins = torch.zeros(n, dtype=torch.int64, device=dev).scatter_reduce_(
+        0, pair_rec, (in_tile + 1).clamp(max=cap), "amax")
+    row_off = torch.cat([z, torch.cumsum(bins, 0)])
+    n_bins = int(row_off[-1])
+    if 4 * n_bins > HIST_BUDGET:
+        raise ValueError(f"K5's histogram rows would take {4 * n_bins} "
+                         f"bytes, more than HIST_BUDGET ({HIST_BUDGET}); use "
+                         f"a smaller tile or fewer records per launch")
+    return TilePlan(tile_ids, pair_off, pair_rec, row_off, n_bins)
+
+
+def tile_sweep_tiled_plain(order, arena_off, run_off, istart, iend,
+                           cap: int = SATURATION,
+                           tile: int = TILE) -> torch.Tensor:
+    """Plain PyTorch emulation of the kernel's decomposition: per tile of
+    ``tile_plan``, fresh counts, its records in order, each record's
+    intervals in the tile found by binary search of its CSR slice and
+    clipped to it, its new counts added to its histogram row; then the
+    medians of the rows.  Equals ``tile_sweep_plain``."""
+    plan = tile_plan(order, arena_off, run_off, istart, iend, cap, tile)
+    hist = torch.zeros(plan.n_bins, dtype=torch.int64, device=order.device)
+    ro, ao = run_off.tolist(), arena_off.tolist()
+    row = plan.row_off.tolist()
+    pairs = plan.pair_rec.tolist()
+    for b, t in enumerate(plan.tile_ids.tolist()):
+        t0 = t * tile
+        counts = torch.zeros(tile, dtype=torch.int64, device=order.device)
+        for r in pairs[int(plan.pair_off[b]): int(plan.pair_off[b + 1])]:
+            s = istart[ro[r]: ro[r + 1]] + (ao[r] - t0)
+            e = iend[ro[r]: ro[r + 1]] + (ao[r] - t0)
+            k0 = int(torch.searchsorted(e, 0, right=True))
+            k1 = int(torch.searchsorted(s, tile))
+            s, e = s[k0:k1].clamp(min=0), e[k0:k1].clamp(max=tile)
+            ln = (e - s).clamp(min=0)
+            m = int(ln.sum())
+            if m == 0:
+                continue
+            pos = (torch.repeat_interleave(s - (torch.cumsum(ln, 0) - ln), ln,
+                                           output_size=m)
+                   + torch.arange(m, device=order.device))
+            v = (counts[pos] + 1).clamp(max=cap)
+            counts[pos] = v
+            hist[row[r]: row[r + 1]] += torch.bincount(
+                v - 1, minlength=row[r + 1] - row[r])
+    # each row's ((n+1)//2)-th smallest count (bin v - 1 counts new count v)
+    levels = torch.full((len(row) - 1,), EMPTY_TILE_LEVEL, dtype=torch.int64,
+                        device=order.device)
+    for r, (a, b) in enumerate(zip(row[:-1], row[1:])):
+        acc = torch.cumsum(hist[a:b], 0)
+        if b > a and int(acc[-1]):
+            k = (int(acc[-1]) + 1) // 2
+            levels[r] = int(torch.searchsorted(acc, k)) + 1
+    return levels
+
+
+def tile_sweep_plain(order, arena_off, run_off, istart, iend,
+                     cap: int = SATURATION, arena=None) -> torch.Tensor:
+    """Plain PyTorch K5, the sequential sweep: one record at a time, its
+    bases gathered from its intervals, incremented in one int16 count
+    arena, written back and their k-th value taken.  ``arena`` (int16,
+    updated in place; the uint16 counts the C sweep keeps, as bits) is
+    made zero when not given."""
+    dev = order.device
+    if arena is None:
+        size = (int(arena_off[order].max()) + int(iend.max())
+                if order.numel() and iend.numel() else 0)
+        arena = torch.zeros(max(size, 1), dtype=torch.int16, device=dev)
     levels = torch.full((run_off.numel() - 1,), EMPTY_TILE_LEVEL,
-                        dtype=torch.int64, device=arena.device)
+                        dtype=torch.int64, device=dev)
     ro, ao = run_off.tolist(), arena_off.tolist()
     for i in order.tolist():
         s, e = istart[ro[i]: ro[i + 1]], iend[ro[i]: ro[i + 1]]
@@ -41,58 +178,50 @@ def tile_sweep_plain(order, arena_off, run_off, istart, iend, arena,
             continue
         pos = (torch.repeat_interleave(s - (torch.cumsum(ln, 0) - ln), ln,
                                        output_size=n)
-               + torch.arange(n, device=arena.device) + ao[i])
+               + torch.arange(n, device=dev) + ao[i])
         c = torch.clamp(arena[pos].to(torch.int32) + 1, max=cap)
         arena[pos] = c.to(torch.int16)
         levels[i] = torch.kthvalue(c, (n + 1) // 2).values
     return levels
 
 
-def tile_sweep(order, arena_off, run_off, istart, iend, arena,
-               cap: int = SATURATION) -> torch.Tensor:
-    """int64 [n_records] tile levels (the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors); ``arena`` is updated in place.  All
-    index tensors are int64; ``arena`` is int16."""
-    idx = (order, arena_off, run_off, istart, iend)
-    if any(x.dtype != torch.int64 or x.dim() != 1 for x in idx):
+def tile_sweep(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
+               tile: int = TILE) -> torch.Tensor:
+    """int64 [n_records] tile levels: the CUDA kernel for CUDA tensors, the
+    plain sequential version for CPU tensors.  Every argument is a 1-D
+    int64 tensor on one device; ``tile`` (1..MAX_TILE) is the kernel's
+    tile of positions.  The plan's cost is timed as the phase "K5 tiles"."""
+    args = (order, arena_off, run_off, istart, iend)
+    if any(x.dtype != torch.int64 or x.dim() != 1 for x in args):
         raise ValueError("order, arena_off, run_off, istart and iend must be "
                          "1-D int64 tensors")
-    if arena.dtype != torch.int16 or arena.dim() != 1:
-        raise ValueError(f"arena must be a 1-D int16 tensor, got "
-                         f"{arena.dtype} of shape {tuple(arena.shape)}")
-    if any(x.device != arena.device for x in idx):
-        raise ValueError("every tensor must be on the arena's device")
+    if any(x.device != order.device for x in args):
+        raise ValueError("every tensor must be on one device")
     if not 1 <= cap <= SATURATION:
         raise ValueError(f"cap must be in [1, {SATURATION}], got {cap}")
-    if arena_off.numel() != run_off.numel() - 1:
-        raise ValueError("arena_off and run_off must cover the same records")
-    if arena.device.type == "cpu":
-        return tile_sweep_plain(order, arena_off, run_off, istart, iend,
-                                arena, cap)
-    dev = kernels.check_device(arena.device)
-    if not arena.is_contiguous():
-        raise ValueError("arena must be contiguous")
+    if not 1 <= tile <= MAX_TILE:
+        raise ValueError(f"tile must be in [1, {MAX_TILE}], got {tile}")
+    if arena_off.numel() != run_off.numel() - 1 or \
+            istart.numel() != iend.numel():
+        raise ValueError("arena_off and run_off must cover the same records, "
+                         "istart and iend the same intervals")
+    if order.device.type == "cpu":
+        return tile_sweep_plain(order, arena_off, run_off, istart, iend, cap)
+    dev = kernels.check_device(order.device)
     n = run_off.numel() - 1
-    levels = torch.full((n,), EMPTY_TILE_LEVEL, dtype=torch.int64,
-                        device=arena.device)
-    if order.numel() == 0:
+    levels = torch.empty(n, dtype=torch.int64, device=order.device)
+    if n == 0:
         return levels
-    # group the order by sequence, keeping each sequence's records in order
-    key = arena_off[order]
-    perm = torch.sort(key, stable=True).indices
-    by_seq = order[perm].contiguous()
-    counts = torch.unique_consecutive(key[perm], return_counts=True)[1]
-    seq_off = torch.zeros(counts.numel() + 1, dtype=torch.int64,
-                          device=arena.device)
-    torch.cumsum(counts, 0, out=seq_off[1:])
-    lib = kernels.load()
-    arena_off, run_off = arena_off.contiguous(), run_off.contiguous()
-    istart, iend = istart.contiguous(), iend.contiguous()
-    rc = lib.paffy_tile_sweep(
-        dev, counts.numel(), seq_off.data_ptr(), by_seq.data_ptr(),
-        arena_off.data_ptr(), run_off.data_ptr(), istart.data_ptr(),
-        iend.data_ptr(), arena.data_ptr(), cap, levels.data_ptr(),
-        kernels.stream_of(arena))
+    args = [x.contiguous() for x in args]
+    with phases.timed("K5 tiles"):
+        plan = tile_plan(*args, cap, tile)
+    hist = torch.zeros(plan.n_bins, dtype=torch.int32, device=order.device)
+    rc = kernels.load().paffy_tile_sweep(
+        dev, plan.tile_ids.numel(), plan.tile_ids.data_ptr(),
+        plan.pair_off.data_ptr(), plan.pair_rec.data_ptr(),
+        *(x.data_ptr() for x in args[1:]), plan.row_off.data_ptr(),
+        hist.data_ptr(), n, cap, tile, levels.data_ptr(),
+        kernels.stream_of(levels))
     kernels.check(rc, "tile_sweep")
     kernels.LAUNCHES["tile_sweep"] += 1
     return levels

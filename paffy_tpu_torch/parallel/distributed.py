@@ -13,8 +13,10 @@ runs as a background job, and the outputs are concatenated in shard order
   * ``run_pipeline_multihost`` gives contig shards to processes round
     robin, runs each local shard's fused stage over the process's
     (data, seq) mesh (parallel/pipeline.make_mesh over
-    ``devconf.devices()``), writes one PAF file per contig group, waits at
-    a barrier, and has process 0 concatenate the files in group order.
+    ``devconf.devices()``; with ``use_mesh=False``, the mesh-less
+    ``pipeline_stage`` on the process's first device), writes one PAF file
+    per contig group, waits at a barrier, and has process 0 concatenate the
+    files in group order.
 
 Across processes the only communication is the barrier and the files, as
 in the reference's share-nothing shards.
@@ -39,7 +41,7 @@ from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.distenv import coordination_barrier, initialize_from_env
 from paffy_tpu_torch.ops.mismatch import SequencePool
 from paffy_tpu_torch.parallel.pipeline import make_mesh
-from paffy_tpu_torch.parallel.runner import (assign_shards,
+from paffy_tpu_torch.parallel.runner import (assign_shards, pipeline_stage,
                                              sharded_pipeline_stage,
                                              split_by_contig)
 
@@ -67,7 +69,8 @@ def _local_shard_names(t: PafTable, groups, shards, pidx: int,
 
 def run_pipeline_multihost(t: PafTable, pool: SequencePool, workdir: str,
                            n_shards: int | None = None,
-                           by_query: bool = True) -> PafTable | None:
+                           by_query: bool = True,
+                           use_mesh: bool = True) -> PafTable | None:
     """The fused pipeline with its contig shards spread over processes.
 
     Every process calls this with the same inputs (paffy_tpu's takes the
@@ -78,6 +81,11 @@ def run_pipeline_multihost(t: PafTable, pool: SequencePool, workdir: str,
     it).  After a barrier, process 0 concatenates every group's file in
     group order and returns the table; the others return None.  The bytes
     equal a single-process ``run_pipeline``'s.
+
+    With ``use_mesh`` (the default) and more than one local device or
+    process, each shard runs ``sharded_pipeline_stage`` over a mesh of the
+    local devices; without it, ``pipeline_stage`` on ``devconf.device()``,
+    as paffy_tpu's ``use_mesh=False``.  The bytes are the same.
 
     ``workdir`` must be on a filesystem every process sees: the files are
     the interconnect.  With more than one process each first drops a probe
@@ -97,8 +105,11 @@ def run_pipeline_multihost(t: PafTable, pool: SequencePool, workdir: str,
     # (SequencePool.offsets_for), not here
     pool = pool.subset(sorted(_local_shard_names(t, groups, shards, pidx,
                                                  pcount)))
-    local = devconf.devices()
-    mesh = make_mesh(local) if len(local) > 1 or pcount > 1 else None
+    mesh = None
+    if use_mesh:
+        local = devconf.devices()
+        if len(local) > 1 or pcount > 1:
+            mesh = make_mesh(local)
 
     os.makedirs(workdir, exist_ok=True)
     if pcount > 1:                    # fail fast on a workdir not shared
@@ -114,7 +125,9 @@ def run_pipeline_multihost(t: PafTable, pool: SequencePool, workdir: str,
                 f"{missing}); the shard gather requires a shared filesystem")
     for s in range(pidx, len(shards), pcount):
         for gi in shards[s]:
-            out = sharded_pipeline_stage(t.take(groups[gi]), pool, mesh)
+            sub = t.take(groups[gi])
+            out = (sharded_pipeline_stage(sub, pool, mesh)
+                   if mesh is not None else pipeline_stage(sub, pool))
             path = os.path.join(workdir, f"shard_{gi:06d}.paf")
             tmp = f"{path}.tmp{pidx}"
             with open(tmp, "wb") as fh:

@@ -3,7 +3,9 @@ run.  ``view``'s, for example: fasta (FASTA read into the host pool), pool
 upload, K2, parse, batch (M-run column batch), pieces (piece table), upload
 (piece table to the device), kernel (K1 and the counts' readback) and
 format (stats, stat lines, output); ``chain``'s: parse, window, K6 (with
-its upload and readback), extract and write.
+its upload and readback), extract and write; ``tile``'s: parse, walk
+check, order, intervals, upload, K5 (with its readback) and, inside K5,
+"K5 tiles" (the kernel's (tile, record) plan, built on the card), write.
 
 Device phases end with a synchronize, so each phase holds its own device
 work; ``reset`` before a run and read ``SECONDS`` after it.

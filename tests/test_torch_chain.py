@@ -1,12 +1,15 @@
 """``chain`` of paffy_tpu_torch against paffy_tpu's, on the CPU
 (PAFFY_TPU_PLATFORM=cpu, so K6 runs its plain PyTorch version): the plain
 chain DP gives the (cs, pred) of paffy_tpu's numpy oracle ``_dp_numpy``,
-its C ``chain_dp`` and its JAX scan ``chain_groups_device`` on random
-groups, every case of chip_smoke.k6_edge_cases at a small size and mixed
-group sizes in one call; ``paf_chain_order`` gives paffy_tpu's tags and
-order on synthdata workloads and their shattered form; the command gives
-the same bytes and exit codes, and without a device raises before it
-reads its input."""
+the port's C ``chain_dp`` and paffy_tpu's JAX scan ``chain_groups_device``
+on random groups, every case of chip_smoke.k6_edge_cases at a small size
+and mixed group sizes in one call; the plain emulation of the CUDA
+kernel's split (the walker's K recent candidates, the helpers' older ones,
+merged by the four-key compare) gives the same at K of 1, 2, 32 and more
+than any window holds; ``paf_chain_order`` solves both strand sets in one
+DP call and gives paffy_tpu's tags and order on synthdata workloads and
+their shattered form; the command gives the same bytes and exit codes,
+and without a device raises before it reads its input."""
 
 import os
 import pathlib
@@ -17,13 +20,12 @@ import numpy as np
 import pytest
 import torch
 
-from paffy_tpu import native as ref_native
 from paffy_tpu.cli import paffy_main as ref_main
 from paffy_tpu.core import pafio as ref_pafio
 from paffy_tpu.ops import chain as ref_chain
 from paffy_tpu.ops.chain_device import chain_groups_device
 from paffy_tpu.ops.transforms import shatter as ref_shatter
-from paffy_tpu_torch import kernels
+from paffy_tpu_torch import kernels, native
 from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops import chain, chain_device
@@ -61,7 +63,7 @@ def assert_dp_matches_paffy_tpu(groups, costs, jax_scan=True):
         np.testing.assert_array_equal(cs, want[0], err_msg=f"cs {k}")
         np.testing.assert_array_equal(pred, want[1], err_msg=f"pred {k}")
         qe_order, lo, hi = ref_chain._window_bounds(g[0], g[1], costs[2])
-        c_cs, c_pred = ref_native.chain_dp(*g, qe_order, lo, hi, *costs)
+        c_cs, c_pred = native.chain_dp(*g, qe_order, lo, hi, *costs)
         np.testing.assert_array_equal(cs, c_cs)
         np.testing.assert_array_equal(pred, c_pred)
         if jax_scan:
@@ -112,7 +114,7 @@ def test_edge_cases_reach_what_they_name():
     # zero gaps and g == score the tie case is for
     cases = chip_smoke.k6_edge_cases()
     wide = chain.dp_arguments(*[cases["wide windows"][0], 1000])
-    assert wide[8].max() > 4 * chip_smoke.K6_BLOCK and wide[8].min() <= 1
+    assert wide[8].max() > chip_smoke.K6_WIDE and wide[8].min() <= 1
     groups, _ = cases["many groups and a large one"]
     sizes = sorted(len(g[0]) for g in groups)
     assert len(groups) == 2001 and sizes[-1] >= 2000 > sizes[-2]
@@ -127,6 +129,68 @@ def test_edge_cases_reach_what_they_name():
     (qs, qe, ts, te, _), = cases["tgap at max_gap"][0]
     tgap = ts[:, None] - te[None, :]
     assert (tgap == 100).any() and (tgap == 101).any()
+
+
+# ------------------------------------------------ the kernel's split
+
+# K: one or two recent candidates, the kernel's default, and more than any
+# window of these cases holds (every candidate is then the walker's)
+SPLIT_K = (1, 2, chain_device.K6_RECENT, 10**6)
+
+
+def assert_split_matches(groups, costs, k, jax_scan=False):
+    """The split emulation on ``groups`` in one call equals the sequential
+    plain DP, and paffy_tpu's (via assert_dp_matches_paffy_tpu)."""
+    host = [torch.from_numpy(a) for a in chain.dp_arguments(groups,
+                                                            costs[2])]
+    got = chain_device.chain_dp_split_plain(*host, *costs, k=k)
+    want = chain_device.chain_dp_groups_plain(*host, *costs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert_dp_matches_paffy_tpu(groups, costs, jax_scan=jax_scan)
+    return got, host
+
+
+@pytest.mark.parametrize("k", SPLIT_K)
+@pytest.mark.parametrize("label", chip_smoke.K6_EDGE_LABELS)
+def test_split_emulation_on_edge_cases(label, k):
+    groups, costs = chip_smoke.k6_edge_cases(scale=0.05)[label]
+    (cs, pred), host = assert_split_matches(groups, costs, k)
+    if k == SPLIT_K[-1]:
+        assert k > host[1].numel()      # every candidate is recent
+
+
+@pytest.mark.parametrize("k", SPLIT_K)
+@pytest.mark.parametrize("seed,max_gap", [(4, 200), (5, 10**6)])
+def test_split_emulation_on_random_groups(seed, max_gap, k):
+    # ties in (val, te, qe) come from coordinates and scores on a few
+    # values; one-record groups sit among larger ones
+    rng = np.random.default_rng(seed)
+    groups = [random_group(rng, n, 60, 6, 40) for n in (1, 60, 1, 140)]
+    (cs, pred), _ = assert_split_matches(groups, (2, 1, max_gap), k,
+                                         jax_scan=k == chain_device.K6_RECENT)
+    assert (pred >= 0).any()
+
+
+def test_ring_slots_hold_twice_k():
+    for k in (1, 2, 31, 32, 33, 256):
+        r = chain_device.ring_slots(k)
+        assert r > 2 * k and r & (r - 1) == 0 and r <= 4 * k + 2
+
+
+def test_paf_chain_order_solves_both_strand_sets_in_one_call():
+    t, r = workload_tables(6, True)
+    calls = []
+
+    def dp_many(groups, *costs):
+        calls.append(len(groups))
+        return [ref_chain._dp_numpy(*g, *costs) for g in groups]
+    tagged, perm = chain.paf_chain_order(t, dp_many=dp_many)
+    want, want_perm = ref_chain.paf_chain_order(r)
+    plus, minus = chain.chain_groups(t)
+    assert calls == [len(plus) + len(minus)] and len(plus) and len(minus)
+    np.testing.assert_array_equal(perm, want_perm)
+    np.testing.assert_array_equal(tagged.chain_id, want.chain_id)
+    np.testing.assert_array_equal(tagged.chain_score, want.chain_score)
 
 
 def test_plain_dp_of_no_record():

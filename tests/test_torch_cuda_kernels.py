@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions on a GPU, at
 small shapes and at the edge cases of K1 (chip_smoke.k1_edge_cases, also
 held against the C loop on the CPU by tests/test_torch_compare.py), K4
-(chip_smoke.k4_edge_cases) and K6 (chip_smoke.k6_edge_cases); K4, K5 and
-K6 also against the C passes, K7 with its tables cut into seq ranges, a
+(chip_smoke.k4_edge_cases), K5 (chip_smoke.k5_edge_cases, at two tiles)
+and K6 (chip_smoke.k6_edge_cases, at two counts of recent candidates); K4,
+K5 and K6 also against the C passes, K7 with its tables cut into seq
+ranges, a
 whole chaining on the card against the same on the CPU, the device check
 of the kernel library, and, on a machine with two cards or more, the mesh
 path with slots on two cards against one card.
@@ -225,30 +227,31 @@ def tile_case(rng, n_seqs, n_records, seq_len, max_iv):
             np.concatenate(iend).astype(np.int64), n_seqs * seq_len)
 
 
+@pytest.mark.parametrize("tile", [64, tile_device.TILE])
 @pytest.mark.parametrize("n_seqs,n_records,max_iv,cap", [
     (1, 40, 30, tile_device.SATURATION), (3, 120, 2500, tile_device.SATURATION),
     (2, 60, 5, 3), (1, 1, 0, tile_device.SATURATION)],
     ids=["one-seq", "many-intervals", "saturating", "empty"])
 def test_tile_kernel_matches_plain_and_c(cuda, n_seqs, n_records, max_iv,
-                                         cap):
+                                         cap, tile):
     rng = np.random.default_rng(n_records + max_iv)
     *args, total = tile_case(rng, n_seqs, n_records, 20_000, max_iv)
-    dargs = [torch.from_numpy(a).to(cuda) for a in args]
-    arena = torch.zeros(total, dtype=torch.int16, device=cuda)
     before = kernels.LAUNCHES["tile_sweep"]
-    got = tile_device.tile_sweep(*dargs, arena, cap)
+    _, got, err = chip_smoke.k5_check(torch, devconf, native, tile_device,
+                                      args, cap, tile)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["tile_sweep"] == before + 1
-    arena_p = torch.zeros_like(arena)
-    assert torch.equal(got, tile_device.tile_sweep_plain(*dargs, arena_p,
-                                                         cap))
-    assert torch.equal(arena, arena_p)
-    arena_c = np.zeros(total, dtype=np.uint16)
-    levels_c = np.full(n_records, 32767, dtype=np.int64)
-    native.tile_sweep(*args, arena_c, cap, levels_c)
-    np.testing.assert_array_equal(got.cpu().numpy(), levels_c)
-    np.testing.assert_array_equal(arena.cpu().numpy().view(np.uint16),
-                                  arena_c)
+    assert err == 0 and kernels.LAUNCHES["tile_sweep"] == before + 1
+    np.testing.assert_array_equal(got, tile_device.tile_sweep_tiled_plain(
+        *(torch.from_numpy(a) for a in args), cap, tile).numpy())
+
+
+@pytest.mark.parametrize("tile", [chip_smoke.K5_EDGE_TILE, tile_device.TILE])
+@pytest.mark.parametrize("label", chip_smoke.K5_EDGE_LABELS)
+def test_tile_kernel_edge_cases(cuda, label, tile):
+    *host, cap, _ = chip_smoke.k5_edge_cases()[label]
+    *_, err = chip_smoke.k5_check(torch, devconf, native, tile_device, host,
+                                  cap, tile)
+    assert err == 0
 
 
 def test_run_and_tile_wrappers_refuse_bad_inputs(cuda):
@@ -267,23 +270,42 @@ def test_run_and_tile_wrappers_refuse_bad_inputs(cuda):
     two = torch.zeros(2, dtype=torch.int64, device=cuda)
     arena = torch.zeros(8, dtype=torch.int16, device=cuda)
     with pytest.raises(ValueError):
-        tile_device.tile_sweep(idx, idx, two, idx, idx, arena.cpu())
+        tile_device.tile_sweep(idx, idx, two.cpu(), idx, idx)
     with pytest.raises(ValueError):
-        tile_device.tile_sweep(idx, idx, two, idx, idx, arena.to(torch.int32))
+        tile_device.tile_sweep(idx, idx, two, idx, idx.int())
     with pytest.raises(ValueError):
-        tile_device.tile_sweep(idx.int(), idx, two, idx, idx, arena)
+        tile_device.tile_sweep(idx.int(), idx, two, idx, idx)
     with pytest.raises(ValueError):
-        tile_device.tile_sweep(idx, idx, two, idx, idx, arena, cap=0)
+        tile_device.tile_sweep(idx, idx, two, idx, idx, cap=0)
+    with pytest.raises(ValueError):
+        tile_device.tile_sweep(idx, idx, two, idx, idx,
+                               tile=tile_device.MAX_TILE + 1)
+    with pytest.raises(ValueError, match="distinct records"):
+        tile_device.tile_sweep(idx + 1, idx, two, idx, idx)
 
 
+@pytest.mark.parametrize("k", [2, chain_device.K6_RECENT])
 @pytest.mark.parametrize("label", chip_smoke.K6_EDGE_LABELS)
-def test_chain_kernel_edge_cases(cuda, label):
+def test_chain_kernel_edge_cases(cuda, label, k):
     groups, costs = chip_smoke.k6_edge_cases()[label]
     before = kernels.LAUNCHES["chain_dp"]
     *_, err = chip_smoke.k6_check(devconf, native, chain, chain_device,
-                                  groups, costs)
+                                  groups, costs, k=k)
     torch.cuda.synchronize()
     assert err == 0 and kernels.LAUNCHES["chain_dp"] == before + 1
+
+
+@pytest.mark.parametrize("threads", [64, 512])
+@pytest.mark.parametrize("k", [1, chain_device.K6_MAX_RECENT])
+def test_chain_kernel_block_and_recent_bounds(cuda, k, threads):
+    # one helper warp, and 15; a single recent candidate, and the most
+    groups, costs = chip_smoke.k6_edge_cases(scale=0.3)[
+        "many groups and a large one"]
+    args = [torch.from_numpy(a).to(cuda)
+            for a in chain.dp_arguments(groups, costs[2])]
+    got = chain_device.chain_dp_groups(*args, *costs, k=k, threads=threads)
+    want = chain_device.chain_dp_groups_plain(*args, *costs)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_chain_on_cuda_equals_cpu(cuda, monkeypatch, tmp_path):
@@ -294,7 +316,7 @@ def test_chain_on_cuda_equals_cpu(cuda, monkeypatch, tmp_path):
     monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
     before = kernels.LAUNCHES["chain_dp"]
     gpu, gpu_perm = chain.paf_chain_order(tab)
-    assert kernels.LAUNCHES["chain_dp"] == before + 2     # one per strand set
+    assert kernels.LAUNCHES["chain_dp"] == before + 1     # both strand sets
     monkeypatch.setenv("PAFFY_TPU_PLATFORM", "cpu")
     cpu, cpu_perm = chain.paf_chain_order(tab)
     np.testing.assert_array_equal(gpu_perm, cpu_perm)
@@ -313,6 +335,10 @@ def test_chain_wrapper_refuses_bad_inputs(cuda):
                                      *costs)
     with pytest.raises(ValueError):
         chain_device.chain_dp_groups(*args[:9], args[9][:-1], *costs)
+    with pytest.raises(ValueError):
+        chain_device.chain_dp_groups(*args, *costs, k=0)
+    with pytest.raises(ValueError):
+        chain_device.chain_dp_groups(*args, *costs, threads=32)
 
 
 @pytest.mark.parametrize(

@@ -342,6 +342,22 @@ def test_native_chain_dp():
     assert (got[1] >= 0).any()
 
 
+@pytest.mark.parametrize("label", chip_smoke.K5_EDGE_LABELS)
+def test_native_tile_sweep(label):
+    # the port's C sweep against paffy_tpu's: counts and levels
+    *host, cap, _ = chip_smoke.k5_edge_cases(scale=0.2)[label]
+    size = int(host[1].max()) + int(host[4].max())
+    out = []
+    for mod in (native, ref_native):
+        arena = np.zeros(size, dtype=np.uint16)
+        levels = np.full(len(host[2]) - 1, 32767, dtype=np.int64)
+        mod.tile_sweep(*host, arena, cap, levels)
+        out.append((arena, levels))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    np.testing.assert_array_equal(out[0][1], out[1][1])
+    assert (out[0][1] < 32767).any() and out[0][0].any()
+
+
 @pytest.mark.parametrize("case", list(CHECK_CASES))
 def test_paf_check_of_raw_spans(case):
     text = workload_text(8) + CHECK_CASES[case]

@@ -8,7 +8,9 @@ tests/test_multiprocess.py, ported).  Asserted:
     byte for byte (the barrier, the file gather and the ``s % pcount``
     shard skip all run);
   * a rerun after a shard file is torn, and after a process is killed
-    mid-run, gives the same bytes (the atomic shard writes).
+    mid-run, gives the same bytes (the atomic shard writes);
+  * ``use_mesh=False`` runs the mesh-less stage and equals paffy_tpu's
+    ``run_pipeline_multihost(use_mesh=False)``, in one process and in two.
 
 A test skips only when the localhost rendezvous itself fails."""
 
@@ -45,26 +47,27 @@ def _free_port() -> int:
 
 
 def _launch(pid: int, port: int, args: list[str], log_path: pathlib.Path,
-            n_proc: int):
+            n_proc: int, cmd=("-m", "paffy_tpu_torch.parallel.distributed")):
     env = dict(os.environ, PAFFY_TPU_PLATFORM="cpu",
                PAFFY_TPU_COORDINATOR=f"localhost:{port}",
                PAFFY_TPU_NUM_PROCESSES=str(n_proc),
                PAFFY_TPU_PROCESS_ID=str(pid), OMP_NUM_THREADS="1")
     log = open(log_path, "w")
     proc = subprocess.Popen(
-        [sys.executable, "-m", "paffy_tpu_torch.parallel.distributed",
-         *args], env=env, cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+        [sys.executable, *cmd, *args], env=env, cwd=REPO, stdout=log,
+        stderr=subprocess.STDOUT)
     proc._log = log  # keep the handle alive
     return proc
 
 
 def _run_world(args: list[str], tmp: pathlib.Path, tag: str,
-               n_proc: int = N_PROC, kill_pid: int | None = None):
-    """Run one world of ``n_proc`` processes; their logs.  With
-    ``kill_pid``, that process is killed 2 s in and the survivors get at
-    most 30 s before they are killed too."""
+               n_proc: int = N_PROC, kill_pid: int | None = None, **kw):
+    """Run one world of ``n_proc`` processes (``_launch``'s ``cmd`` in
+    ``kw``); their logs.  With ``kill_pid``, that process is killed 2 s in
+    and the survivors get at most 30 s before they are killed too."""
     port = _free_port()
-    procs = [_launch(pid, port, args, tmp / f"proc{pid}.{tag}.log", n_proc)
+    procs = [_launch(pid, port, args, tmp / f"proc{pid}.{tag}.log", n_proc,
+                     **kw)
              for pid in range(n_proc)]
     try:
         if kill_pid is not None:
@@ -191,3 +194,71 @@ def test_killed_process_world_rerun(workload7):
         out.unlink()
     _run_world(args, tmp, "p4rerun", n_proc=N_PROC4)
     assert out.read_text() == expected
+
+
+# run_pipeline_multihost(use_mesh=False) in a process of the group; a mesh
+# would be built here (two processes), so a make_mesh that raises shows
+# that the keyword skips it
+NO_MESH = """
+import sys
+
+import torch.distributed as dist
+
+import paffy_tpu_torch.parallel.distributed as d
+from paffy_tpu_torch.core import pafio
+from paffy_tpu_torch.distenv import initialize_from_env
+from paffy_tpu_torch.ops.mismatch import SequencePool
+
+
+def no_mesh(*args, **kw):
+    raise AssertionError("use_mesh=False built a mesh")
+
+
+d.make_mesh = no_mesh
+paf, fasta, out, workdir, shards = sys.argv[1:6]
+initialize_from_env()
+with open(paf, "rb") as fh:
+    t = pafio.parse_paf_data(fh.read())
+res = d.run_pipeline_multihost(t, SequencePool.from_fasta_files([fasta]),
+                               workdir, n_shards=int(shards), use_mesh=False)
+if res is not None:
+    with open(out, "wb") as fh:
+        fh.write(pafio.serialize_paf_bytes(res))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("n_proc", [1, 2])
+def test_use_mesh_false_matches_paffy_tpu(workload, n_proc, monkeypatch):
+    from paffy_tpu.parallel.distributed import run_pipeline_multihost
+    tmp, _ = workload
+    lines = (tmp / "seqs.fa").read_text().split()
+    seqs = {h[1:]: s for h, s in zip(lines[::2], lines[1::2])}
+    t = pafio.parse_paf_text((tmp / "in.paf").read_text())
+    want = pafio.serialize_paf(run_pipeline_multihost(
+        t, seqs, str(tmp / f"ref_nomesh{n_proc}"), n_shards=N_SHARDS,
+        use_mesh=False))
+    out = tmp / f"nomesh{n_proc}.paf"
+    args = [str(tmp / "in.paf"), str(tmp / "seqs.fa"), str(out),
+            str(tmp / f"nomesh{n_proc}"), str(N_SHARDS)]
+    if n_proc == 2:
+        _run_world(args, tmp, "nomesh", cmd=("-c", NO_MESH))
+        assert out.read_text() == want
+        return
+    # one process with two local devices: the default would build a mesh
+    import torch
+
+    import paffy_tpu_torch.parallel.distributed as d
+    from paffy_tpu_torch import devconf
+    from paffy_tpu_torch.core import pafio as port_pafio
+    from paffy_tpu_torch.ops.mismatch import SequencePool
+    monkeypatch.setenv("PAFFY_TPU_PLATFORM", "cpu")
+    monkeypatch.setattr(devconf, "devices",
+                        lambda: [torch.device("cpu")] * 2)
+    monkeypatch.setattr(d, "make_mesh", lambda *a, **k: pytest.fail(
+        "use_mesh=False built a mesh"))
+    res = d.run_pipeline_multihost(
+        port_pafio.parse_paf_data((tmp / "in.paf").read_bytes()),
+        SequencePool.from_fasta_files([str(tmp / "seqs.fa")]),
+        args[3], n_shards=N_SHARDS, use_mesh=False)
+    assert bytes(port_pafio.serialize_paf_bytes(res)).decode() == want
