@@ -3,7 +3,8 @@
 ``add_mismatches``, ``tile``, ``chain`` and ``trim``, the fused
 ``add_mismatches | chain | tile | trim`` pipeline, the (data, seq) mesh
 path and the multi-process runner, at chromosome scale through the port's
-CUDA kernels.
+CUDA kernels; every host-only paffy and faffy command at the same scale;
+and ``chain`` under the profiler hook (PAFFY_TPU_PROFILE).
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -32,6 +33,10 @@ Phases (any failure exits non-zero and prints no result line):
               before it) on the same files, then ``add_mismatches -a`` on
               its output (a host path); both digests must equal the pinned
               digests of paffy_tpu's output (its host C route).
+   batches -- ``view -s`` and ``add_mismatches`` again with the streaming
+              batch (commands.common.BATCH_BYTES) cut so that in.paf spans
+              MIN_BATCHES batches or more: the same pins, the same kernels
+              launched.
 6. runs    -- K4 (count and fill) at full size and on its edge cases
               (k4_edge_cases) against its plain versions on the card and
               the C passes native.encode_runs_per_mop and
@@ -44,8 +49,9 @@ Phases (any failure exits non-zero and prints no result line):
               native.tile_sweep, and span more than one level; K5 against
               both on its edge cases (k5_edge_cases) at their own tiles and
               at K5_EDGE_TILE.
-8. chain   -- the chain input (chain_input: one gapless record per M run,
-              216,159 records, paffy_tpu's ``shatter`` of in.paf), pinned;
+8. chain   -- the chain input: the port's ``shatter`` of in.paf (one
+              gapless record per M run, 216,159 records), pinned, and equal
+              to chain_input's bytes, made from the synthesis;
               the port's ``chain`` on it (launch counts reset before it)
               must equal the pinned digest of paffy_tpu's ``chain`` and
               launch K6 once.  K6 must equal the C DP (native.chain_dp) at
@@ -61,6 +67,16 @@ Phases (any failure exits non-zero and prints no result line):
               version (on the host: 216,159 records) and the C sweep; then
               ``run_pipeline`` in process on the same table with a pool
               from the same FASTA, pinned, with its records per second.
+   host    -- host_phase through the port's ``paffy_main`` and
+              ``faffy_main``: invert, dedupe -a, filter, to_bed, split_file,
+              faffy chunk, merge and extract, upconvert and dechunk at full
+              size, each output's digest pinned to paffy_tpu's, no kernel
+              launched; each command's wall is printed.
+   profile -- ``chain`` on chain.paf under PAFFY_TPU_PROFILE (after one
+              warm-up run of the profiler, which starts CUPTI): its output
+              pinned, one Chrome trace written, holding device events of
+              K6; the device's busy time (the union of its kernels, copies
+              and sets) over the command's wall is printed.
 10. mesh   -- column_counts_multichip on in.paf over a (1,1) mesh of the
               first card, then over 8 slots filled round robin from the
               cards present as (4,2), (8,1) and (2,4) (all cuda:0 on one
@@ -107,7 +123,9 @@ This script uses only paffy_tpu_torch, and imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import socket
@@ -134,7 +152,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # that add_mismatches output, and of paffy_tpu's tile on it; of
 # chain_input (paffy_tpu's shatter of in.paf), of paffy_tpu's chain on it,
 # of its add_mismatches, chain, tile and trim one after another from it,
-# and of its run_pipeline on it; made by tests/test_torch_host.py --pins
+# and of its run_pipeline on it; of host_phase's outputs through
+# paffy_tpu's commands; made by tests/test_torch_host.py --pins
 PINS = {
     "seqs.fa": "5e4d5d8787566cbba4677b110e206d3355fdabe151b45a21851ab56c9f6b9c80",
     "in.paf": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
@@ -151,6 +170,20 @@ PINS = {
     "pipeline tile": "94139344fdb2a669862ae4877a65390594325b39b53262457ce42cb12f3f8bd8",
     "pipeline trim": "4327696a68f292d133479aab577a7d1c79b01c8cc1867d766cc3ef92b4ad05af",
     "run_pipeline": "4327696a68f292d133479aab577a7d1c79b01c8cc1867d766cc3ef92b4ad05af",
+    "invert in.paf": "ad0588feffbeace1005c0ce2103210f83561e472429114d8aa5a05ebc402fc09",
+    "invert chain.paf": "0f5c7e8bd04ca7e1c90e7e1b3e9daa9988b3f1a5e02af4a666cb2af23e92273d",
+    "dedupe -a": "e4691f7732a3ba5b7e9111e0d0e56f984b93d52d2eafaf63da0712f4e0bc720c",
+    "filter -w 1": "94139344fdb2a669862ae4877a65390594325b39b53262457ce42cb12f3f8bd8",
+    "filter -u 0.97": "4ec6cbe73ed8ce4da7cd88cb5feafa1bb188df3fac97fe070a3686ba2cf930a6",
+    "to_bed": "a274b52d6d93605950459a0be4b6b6ef1502277df829fc77eeab1d313f4aec13",
+    "to_bed -b -n": "2a9622e2b56b1169411c0b88b619ebc870d3fc88927985f6cf8125bf409d615b",
+    "to_bed -e -m 100": "fcae192575259bc2e4baff9d8abdba1066a509053aee62997d52ce7e663119fc",
+    "split_file -q -m": "3b49c0a426b40574f2c7044ac5e17d4199cfc5229a708c29e6922599da0c8abe",
+    "faffy chunk": "b474c993980996d6534327e607079c7a3bf25ada0eeee64c2c5ceda21be1af65",
+    "faffy merge": "253d1a879ebe8e5999945ba6c260ca9d0abfedbf95ac158c8da67e28b16d580b",
+    "faffy extract": "84326d84c32022d69743eec4d64f52ce13f98bc44342090cb0b56bc33ab59b51",
+    "upconvert": "d8545c03b2fefd6a19a9b682bb9f8ee84a43bd67f91270c5a84f4695706b5b9c",
+    "dechunk": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
 }
 
 # the K1 edge cases, see k1_edge_cases
@@ -183,6 +216,12 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 K7_SEQ_RANGES = 3
 MESH_SHAPES = ((1, 1), (4, 2), (8, 1), (2, 4))
 MP_TIMEOUT_S = 300             # each multiprocess run's time limit
+# split_file -m of the host phase: both 135 Mbp contigs are "small", and
+# the second does not fit the first one's file
+SPLIT_MIN_LENGTH = 200_000_000
+# the multi-batch runs of view -s and add_mismatches: in.paf in this many
+# streaming batches or more
+MIN_BATCHES = 4
 K6_EDGE_LABELS = ("wide windows", "ties, zero gaps, g == score",
                   "tgap at max_gap", "mirrored coordinates", "past 2^40",
                   "groups of 0 and 1", "many groups and a large one")
@@ -458,6 +497,111 @@ def chain_input(w, seq_len=SEQ_LEN) -> bytes:
         f"q_chr\t{seq_len}\t{q}\t{q + n}\t{s}\tt_chr\t{seq_len}\t{t}\t"
         f"{t + n}\t{n}\t{n}\t60\tAS:i:{a}\ts1:i:0\tcg:Z:{n}M\n"
         for q, s, t, n, a in cols).encode()
+
+
+def record_bed(paf: bytes) -> str:
+    """faffy extract's BED for the host phase: each record's query interval,
+    then its target interval, one line each.  Extract pads and coalesces
+    them, so every record lies inside one fragment and upconvert can move
+    it there."""
+    rows = []
+    for line in paf.decode("latin-1").splitlines():
+        f = line.split("\t")
+        rows.append(f"{f[0]}\t{f[2]}\t{f[3]}\n{f[5]}\t{f[7]}\t{f[8]}\n")
+    return "".join(rows)
+
+
+def chunk_digest(listing: bytes, chunk_dir: str) -> str:
+    """SHA-256 of faffy chunk's output: its listing with ``chunk_dir``
+    written as "chunks", then each listed file's bytes in listing order."""
+    h = hashlib.sha256(listing.replace(chunk_dir.encode(), b"chunks"))
+    for path in listing.decode().split():
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def files_digest(paths, root: str) -> str:
+    """SHA-256 over files: each one's name relative to ``root``, then its
+    bytes, in the order given."""
+    h = hashlib.sha256()
+    for path in paths:
+        h.update(os.path.relpath(path, root).encode() + b"\0")
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    return h.hexdigest()
+
+
+def host_phase(d, paf, fa, cpaf, tpaf, pipe_tile, paffy, faffy):
+    """The host-only commands at full size, through ``paffy`` and ``faffy``
+    (a package's ``paffy_main`` and ``faffy_main``), in the directory
+    ``d``: invert of in.paf and of chain.paf; dedupe -a of chain.paf
+    followed by its inversion (twins.paf: every record has an inverse
+    twin); filter -w 1 and -u 0.97 of the pipeline's tile output; to_bed,
+    to_bed -b -n and to_bed -e -m 100 of tile.paf; split_file -q -m of
+    twins.paf (two contigs, each in a small file of its own); faffy chunk
+    of seqs.fa (default sizes), its listing and chunk files; faffy merge of
+    the listing; faffy extract of record_bed(in.paf); upconvert of in.paf
+    onto those fragments, and dechunk of that.  Returns ({pin: SHA-256 of
+    the output}, {pin: wall seconds}); raises unless every command exits
+    0."""
+    digests, walls = {}, {}
+
+    def run(pin, main, argv, out=None):
+        """One command; its output is ``out`` in d, or its stdout."""
+        buf = io.TextIOWrapper(io.BytesIO(), encoding="latin-1",
+                               write_through=True)
+        args = [*argv, "-o", os.path.join(d, out)] if out else argv
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(args)
+        walls[pin] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"{pin} exited with {rc}")
+        if out:
+            digests[pin] = sha256_file(os.path.join(d, out))
+        return buf.buffer.getvalue()
+
+    def path(name):
+        return os.path.join(d, name)
+
+    run("invert in.paf", paffy, ["invert", "-i", paf], "inv_in.paf")
+    run("invert chain.paf", paffy, ["invert", "-i", cpaf], "inv_chain.paf")
+    twins = path("twins.paf")
+    with open(twins, "wb") as fh:
+        for src in (cpaf, path("inv_chain.paf")):
+            with open(src, "rb") as f:
+                fh.write(f.read())
+    run("dedupe -a", paffy, ["dedupe", "-a", "-i", twins], "deduped.paf")
+    for flags in (["-w", "1"], ["-u", "0.97"]):
+        run(f"filter {' '.join(flags)}", paffy,
+            ["filter", *flags, "-i", pipe_tile], "filtered.paf")
+    for flags in ([], ["-b", "-n"], ["-e", "-m", "100"]):
+        run(" ".join(["to_bed", *flags]), paffy,
+            ["to_bed", *flags, "-i", tpaf], "cov.bed")
+    split_dir = path("split")
+    os.makedirs(split_dir)
+    run("split_file -q -m", paffy,
+        ["split_file", "-q", "-m", str(SPLIT_MIN_LENGTH), "-p",
+         os.path.join(split_dir, "part_"), "-i", twins])
+    digests["split_file -q -m"] = files_digest(
+        sorted(os.path.join(split_dir, f) for f in os.listdir(split_dir)),
+        split_dir)
+    chunk_dir = path("chunks")
+    listing = run("faffy chunk", faffy, ["chunk", "-d", chunk_dir, fa])
+    digests["faffy chunk"] = chunk_digest(listing, chunk_dir)
+    with open(path("chunks.txt"), "wb") as fh:
+        fh.write(listing)
+    run("faffy merge", faffy, ["merge", "-i", path("chunks.txt")],
+        "merged.fa")
+    with open(paf, "rb") as fh, open(path("records.bed"), "w") as out:
+        out.write(record_bed(fh.read()))
+    run("faffy extract", faffy, ["extract", "-i", path("records.bed"), fa],
+        "fragments.fa")
+    run("upconvert", paffy, ["upconvert", "-i", paf, path("fragments.fa")],
+        "up.paf")
+    run("dechunk", paffy, ["dechunk", "-i", path("up.paf")], "dechunked.paf")
+    return digests, walls
 
 
 def k6_edge_cases(seed=SEED, scale=1.0):
@@ -810,9 +954,38 @@ def k7_check(torch, devconf, group_stats, pipeline, ext, table_np, n_slots):
     return (*(devconf.to_host_i64(o) for o in outs[0]), straddles, err)
 
 
+def device_busy(trace_path, kernel):
+    """(busy seconds, {kind: device microseconds}, microseconds and count
+    of the events of ``kernel``) of a Chrome trace of torch.profiler:
+    busy is the union of the device events' intervals (kernels, copies
+    and sets)."""
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    dev = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")
+           and "dur" in e]
+    by_cat: dict = {}
+    for e in dev:
+        by_cat[e["cat"]] = by_cat.get(e["cat"], 0.0) + float(e["dur"])
+    mine = [float(e["dur"]) for e in dev
+            if e["cat"] == "kernel" and kernel in e.get("name", "")]
+    busy, end = 0.0, None
+    for ts, dur in sorted((float(e["ts"]), float(e["dur"])) for e in dev):
+        if end is None or ts >= end:
+            busy += dur
+            end = ts + dur
+        elif ts + dur > end:
+            busy += ts + dur - end
+            end = ts + dur
+    return busy / 1e6, by_cat, sum(mine), len(mine)
+
+
 def run(torch) -> dict:
+    import argparse
+    import shutil
     from paffy_tpu_torch import devconf, kernels, native, phases
-    from paffy_tpu_torch.cli import paffy_main
+    from paffy_tpu_torch.cli import faffy_main, paffy_main
+    from paffy_tpu_torch.commands import common
     from paffy_tpu_torch.core import pafio
     from paffy_tpu_torch.ops import (chain, chain_device, compare,
                                      group_stats, mismatch, mismatch_device,
@@ -861,12 +1034,12 @@ def run(torch) -> dict:
         peaks[tag] = torch.cuda.max_memory_allocated() - held
         return out
 
-    def drive(tag, argv, out):
+    def drive(tag, argv, out, pin=None):
         """One command of the port through ``measure``; its output's
-        digest must be the pinned one."""
+        digest must be PINS[pin or tag]."""
         rc = measure(tag, lambda: paffy_main([*argv, "-o", out]))
         expect_equal(f"port {tag} exit code", rc, 0)
-        expect_pin(tag, out)
+        expect_pin(tag, out, pin)
         log(f"launches during the port's {tag}: {launches[tag]}")
 
     def launched(tag, names, once=()):
@@ -972,6 +1145,29 @@ def run(torch) -> dict:
             encoded = fh.read()
         log(f"add_mismatches wrote {len(encoded)} bytes")
 
+        log("== batches")
+        # view -s and add_mismatches again, in.paf in several streaming
+        # batches
+        bb = os.path.getsize(paf) // (MIN_BATCHES + 1)
+        n_batches = sum(1 for _ in common.stream_tables(
+            argparse.Namespace(inputFile=paf), batch_bytes=bb,
+            parse_cigars=False))
+        expect_equal(f"in.paf spans {MIN_BATCHES} or more batches of {bb} "
+                     f"bytes ({n_batches})", n_batches >= MIN_BATCHES, True)
+        saved = common.BATCH_BYTES
+        common.BATCH_BYTES = bb
+        try:
+            drive("view -s in batches", ["view", "-i", paf, "-s", fa],
+                  os.path.join(d, "ours.txt"), pin="view -s")
+            drive("add_mismatches in batches", ["add_mismatches", "-i", paf,
+                                                fa],
+                  os.path.join(d, "am_batches.paf"), pin="add_mismatches")
+        finally:
+            common.BATCH_BYTES = saved
+        launched("view -s in batches", ("piece_compare", "build_ext"))
+        launched("add_mismatches in batches", ("build_ext", "run_counts",
+                                               "run_fill"))
+
         log("== runs")
         k = b.n_mops
         _, table4, counts4, first_out4, n_runs, k4_err = k4_check(
@@ -1029,10 +1225,13 @@ def run(torch) -> dict:
                     f"tiles)")
 
         log("== chain")
+        # the chain input is the port's shatter of in.paf; chain_input
+        # writes the same bytes from the synthesis
         cpaf = os.path.join(d, "chain.paf")
-        with open(cpaf, "wb") as fh:
-            fh.write(chain_input(w))
-        expect_pin("chain.paf", cpaf)
+        drive("shatter", ["shatter", "-i", paf], cpaf, pin="chain.paf")
+        with open(cpaf, "rb") as fh:
+            expect_equal("the port's shatter of in.paf == chain_input",
+                         fh.read() == chain_input(w), True)
         drive("chain", ["chain", "-i", cpaf], os.path.join(d, "chained.paf"))
         launched("chain", ("chain_dp",), once=("chain_dp",))
         with open(cpaf, "rb") as fh:
@@ -1113,6 +1312,55 @@ def run(torch) -> dict:
             f"{walls['run_pipeline']:.4f} s, "
             f"{len(tp) / walls['run_pipeline']:.1f} records/s")
         del piped
+
+        log("== host")
+        hd = os.path.join(d, "host")
+        os.makedirs(hd)
+        kernels.reset_launch_counts()
+        digests, host_walls = host_phase(
+            hd, paf, fa, cpaf, tpaf, os.path.join(d, "pipe_tile.paf"),
+            paffy_main, faffy_main)
+        for pin, digest in digests.items():
+            expect_equal(f"SHA-256 of the port's {pin} is the pinned one",
+                         digest, PINS[pin])
+        expect_equal("kernel launches during the host commands",
+                     sum(kernels.LAUNCHES.values()), 0)
+        for pin, sec in host_walls.items():
+            log(f"host {pin}: {sec:.4f} s wall")
+        log(f"host commands: {sum(host_walls.values()):.4f} s wall in all")
+        shutil.rmtree(hd)
+
+        log("== profile")
+        # CUPTI's start-up on the process's first profiler run (seconds)
+        # stays out of the command's wall: a warm-up run first
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            torch.ones(1, device=dev).sum().item()
+        log(f"profiler warm-up: {time.perf_counter() - t0:.4f} s")
+        prof_dir = os.path.join(d, "traces")
+        os.environ["PAFFY_TPU_PROFILE"] = prof_dir
+        try:
+            drive("chain under the profiler", ["chain", "-i", cpaf],
+                  os.path.join(d, "chained.paf"), pin="chain")
+        finally:
+            os.environ.pop("PAFFY_TPU_PROFILE")
+        launched("chain under the profiler", ("chain_dp",),
+                 once=("chain_dp",))
+        traces = os.listdir(prof_dir)
+        expect_equal("traces written", len(traces), 1)
+        busy, by_cat, k6_us, k6_n = device_busy(
+            os.path.join(prof_dir, traces[0]), "chain_dp")
+        expect_equal("K6 device events in the trace", k6_n >= 1, True)
+        prof_wall = walls["chain under the profiler"]
+        log(f"profile of chain: {traces[0]}; device busy {busy:.6f} s of "
+            f"the command's {prof_wall:.4f} s wall under the profiler: "
+            f"busy share {busy / prof_wall:.4%}, idle share "
+            f"{1 - busy / prof_wall:.4%}; of chain's {walls['chain']:.4f} s "
+            f"without it: {busy / walls['chain']:.4%}; K6 {k6_us / 1e3:.4f} "
+            f"ms in {k6_n} event(s); device time by kind (ms): "
+            f"{ {k: round(v / 1e3, 4) for k, v in by_cat.items()} }")
 
         log("== mesh")
         cards = devconf.devices()

@@ -3,10 +3,11 @@ paffy_tpu/commands/common.py: the argument parser, the stdio-granularity
 output writer, the streaming PAF reader, whole-table read and write, and
 the streaming read -> transform -> write loop).
 
-Flags and defaults are the reference's: -i/-o default to stdin/stdout, -l
-sets the log level.  Output goes through ``GlibcWriter``, which reproduces
-the reference's glibc stdio blocks, so the bytes that reach a file before
-a failure are the reference's too.
+Flags and defaults are the reference's: -i/-o default to stdin/stdout
+(commands that name their files otherwise build the parser with
+``io=False``), -l sets the log level.  Output goes through
+``GlibcWriter``, which reproduces the reference's glibc stdio blocks, so
+the bytes that reach a file before a failure are the reference's too.
 """
 
 from __future__ import annotations
@@ -23,21 +24,28 @@ from paffy_tpu_torch.utils.logging import (CommandTimer, log_info,
                                            set_log_level_from_string)
 
 
-def base_parser(prog: str, description: str) -> argparse.ArgumentParser:
+def base_parser(prog: str, description: str,
+                io: bool = True) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog=prog, description=description, add_help=True)
-    p.add_argument("-i", "--inputFile", default=None,
-                   help="Input paf file. If not specified reads from stdin")
-    p.add_argument("-o", "--outputFile", default=None,
-                   help="Output file. If not specified outputs to stdout")
+    if io:
+        p.add_argument("-i", "--inputFile", default=None,
+                       help="Input paf file. If not specified reads from stdin")
+        p.add_argument("-o", "--outputFile", default=None,
+                       help="Output file. If not specified outputs to stdout")
     p.add_argument("-l", "--logLevel", default=None, help="Set the log level")
     return p
 
 
 def start(args, name: str) -> CommandTimer:
-    set_log_level_from_string(args.logLevel)
-    log_info("Input file string : %s", args.inputFile)
-    log_info("Output file string : %s", args.outputFile)
+    set_log_level_from_string(getattr(args, "logLevel", None))
+    log_info("Input file string : %s", getattr(args, "inputFile", None))
+    log_info("Output file string : %s", getattr(args, "outputFile", None))
     return CommandTimer(name)
+
+
+def open_input(args):
+    """The command's input as text (-i file or stdin)."""
+    return sys.stdin if args.inputFile is None else open(args.inputFile, "r")
 
 
 class _TextGlibcFacade:

@@ -1,20 +1,26 @@
-"""paffy add_mismatches and paffy trim on the port (counterpart of
-paffy_tpu/commands/simple.py:387-462, ``add_mismatches_main``, and
-:268-337, ``trim_main`` and ``_first_empty_cigar``).
+"""The streaming per-record commands of the port: add_mismatches, trim,
+invert, shatter, dedupe and filter (counterpart of
+paffy_tpu/commands/simple.py; the reference's impl/paf_add_mismatches.c,
+impl/paf_trim.c, impl/paf_invert.c, impl/paf_shatter.c, impl/paf_dedupe.c
+and impl/paf_filter.c).
 
-The same flags, output bytes and exit codes as paffy_tpu's: M runs become
-=/X runs (impl/paf_add_mismatches.c), and ``-a`` merges =/X runs back into
-M runs.  Per batch, in the reference's per-record order: the first record
-whose query or target sequence is missing ends the batch; paf_check runs
-before the encode (each M op's =/X runs sum to its length, so the check's
-verdict is the reference's check after the encode); the encoded records
-before a failing record or a missing sequence are written before the
-command fails.  The encode runs K2 and K4 on the device
-(ops/mismatch.encode_mismatches) and serializes the encoded table, where
-paffy_tpu fuses encode and serialize in C; the bytes are the same.
+The same flags, output bytes and exit codes as paffy_tpu's, and the same
+records written before a failure.  ``add_mismatches`` (:387-462): M runs
+become =/X runs, and ``-a`` merges =/X runs back into M runs.  Per batch,
+in the reference's per-record order: the first record whose query or
+target sequence is missing ends the batch; paf_check runs before the
+encode (each M op's =/X runs sum to its length, so the check's verdict is
+the reference's check after the encode); the encoded records before a
+failing record or a missing sequence are written before the command fails.
+The encode runs K2 and K4 on the device (ops/mismatch.encode_mismatches)
+and serializes the encoded table, where paffy_tpu fuses encode and
+serialize in C; the bytes are the same.
 
-``trim`` (impl/paf_trim.c) is host code: the identity trim of
-ops/tailtrim.py by default, the fixed end trim with ``-f``.
+The others are host code, as in paffy_tpu, and never touch the device:
+``trim`` (:268-337) the identity trim of ops/tailtrim.py by default, the
+fixed end trim with ``-f``; ``invert`` (:25) and ``shatter`` (:73) their
+fused native serializers; ``dedupe`` (:120, ``DedupeState`` :159) and
+``filter`` (:340) vectorized over each batch.
 """
 
 from __future__ import annotations
@@ -23,17 +29,19 @@ import sys
 
 import numpy as np
 
-from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch import devconf, native, phases
 from paffy_tpu_torch.commands.common import (base_parser,
                                              close_output_binary,
                                              open_output_binary, start,
-                                             stream_tables, stream_transform)
+                                             stream_tables, stream_transform,
+                                             write_check_prefix)
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
 from paffy_tpu_torch.ops.tailtrim import trim_unreliable_tails
-from paffy_tpu_torch.ops.transforms import (remove_mismatches, stats_calc,
+from paffy_tpu_torch.ops.transforms import (invert, remove_mismatches,
+                                            shatter_violation, stats_calc,
                                             trim_end_fraction)
-from paffy_tpu_torch.utils.logging import log_info
+from paffy_tpu_torch.utils.logging import debug_enabled, log_debug, log_info
 
 
 def add_mismatches_main(argv) -> int:
@@ -154,5 +162,229 @@ def trim_main(argv) -> int:
     else:
         stream_transform(args, step, parse_cigars=False,
                          validate_cigars=True)
+    timer.done()
+    return 0
+
+
+def invert_main(argv) -> int:
+    p = base_parser("paffy invert", "Inverts the query and target in a PAF file")
+    args = p.parse_args(argv)
+    timer = start(args, "Paf invert")
+    out = open_output_binary(args)
+    try:
+        # raw cigars: the fused serializer rewrites the cg text token by
+        # token, checking the spans as it goes, and paf_check on the raw
+        # table checks the bounds (together the reference's paf_check after
+        # the invert, which is symmetric in query and target).  A batch
+        # with a non-canonical cigar arrives parsed and takes invert().
+        for t in stream_tables(args, parse_cigars=False,
+                               validate_cigars=True):
+            if not len(t):
+                continue
+            if t.raw_cg is not None:
+                try:
+                    pafio.paf_check(t)
+                except pafio.PafCheckError as e:
+                    # the reference inverts, checks and writes record by
+                    # record: the inverted records before the bad one
+                    if e.record_index:
+                        native.invert_serialize(
+                            t.take(np.arange(e.record_index)), fh=out)
+                    raise
+                native.invert_serialize(t, fh=out)
+                continue
+            try:
+                t = invert(t)
+                pafio.paf_check(t)
+            except pafio.PafCheckError as e:
+                write_check_prefix(out, e)
+                raise
+            out.write(pafio.serialize_paf_bytes(t))
+    finally:
+        close_output_binary(out)
+    timer.done()
+    return 0
+
+
+def shatter_main(argv) -> int:
+    p = base_parser("paffy shatter", "Break up paf alignments into individual matches")
+    args = p.parse_args(argv)
+    timer = start(args, "Paffy shatter")
+    out = open_output_binary(args)
+    try:
+        for t in stream_tables(args):
+            if not len(t):
+                continue
+            # the reference's walk asserts per op and per record, and
+            # paf_checks each shard it builds (impl/paf.c:600-663).  Both
+            # deaths come after the shards of the records before the bad
+            # one were written; an assert ("abort", SIGABRT) loses the
+            # sub-block stdio tail, a shard check ("check", st_errAbort)
+            # flushes it.
+            kind, rec = shatter_violation(t)
+            if kind is not None:
+                if rec > 0:
+                    native.shatter_serialize(t.take(np.arange(rec)), fh=out)
+                err = pafio.PafCheckError(
+                    f"shatter: invalid record, {pafio.format_record(t, rec)}")
+                err.stdio_lost_tail = kind == "abort"
+                raise err
+            native.shatter_serialize(t, fh=out)
+    finally:
+        close_output_binary(out)
+    timer.done()
+    return 0
+
+
+def dedupe_main(argv) -> int:
+    p = base_parser("paffy dedupe", "Remove duplicate paf records")
+    p.add_argument("-a", "--checkInverse", action="store_true",
+                   help="Also deduplicate alignments that are the same, but "
+                        "with query and target reversed")
+    args = p.parse_args(argv)
+    timer = start(args, "Paffy dedupe")
+    state = DedupeState(args.checkInverse)
+
+    def step(t):
+        keep, checked = state.process(t)
+        if checked is not None and checked.any():
+            # -a: the reference paf_checks exactly the records whose direct
+            # probe of the kept hash missed (impl/paf_dedupe.c:120-124), on
+            # unparsed cigars, so the spans are never checked
+            try:
+                pafio.paf_check(t, idx=np.flatnonzero(checked))
+            except pafio.PafCheckError as e:
+                # the kept records before the bad one were written
+                pre = t.take(keep & (np.arange(len(t)) < e.record_index))
+                e.table, e.record_index = pre, len(pre)
+                raise
+        if debug_enabled():
+            for i in np.flatnonzero(~keep):
+                log_debug("Got duplicate pafs:")
+                log_debug("\t\tdupe (1) - : %s", pafio.format_record(t, i))
+        return t.take(keep)
+    # raw cigars, unvalidated: the reference reads with parse_cigar=0
+    # (impl/paf_dedupe.c:117), so any cg text passes through as it is
+    stream_transform(args, step, parse_cigars=False)
+    timer.done()
+    return 0
+
+
+class DedupeState:
+    """First-occurrence-wins dedupe on the full coordinate key
+    (impl/paf_dedupe.c:27-46,117-143), vectorized over a batch and carried
+    across batches.
+
+    With ``check_inverse`` a record is also a duplicate when its key with
+    query and target swapped was seen before.  The reference probes its
+    hash of kept records; probing every earlier key gives the same
+    decisions (a record dropped by a direct hit repeats a kept key, one
+    dropped by an inverse hit shares its inverse with a kept key).
+    """
+
+    def __init__(self, check_inverse: bool):
+        self.check_inverse = check_inverse
+        self.name_id: dict[str, int] = {}
+        self.seen = None    # the sorted keys kept so far, all batches
+
+    def _probe_seen(self, keys) -> np.ndarray:
+        if self.seen is None or len(self.seen) == 0:
+            return np.zeros(len(keys), dtype=bool)
+        pos = np.clip(np.searchsorted(self.seen, keys), 0, len(self.seen) - 1)
+        return self.seen[pos] == keys
+
+    def process(self, t):
+        """(keep, checked): keep marks the records that are not duplicates;
+        checked, under check_inverse (else None), the records the reference
+        paf_checks (the direct probe of its kept hash missed)."""
+        n = len(t)
+        if n == 0:
+            return np.zeros(0, dtype=bool), None
+        # names to ids through one unique pass: only distinct names touch
+        # the dict, which keeps the ids stable across batches
+        both = np.concatenate([t.qname, t.tname])
+        uniq_names, inv = np.unique(both, return_inverse=True)
+        gids = np.fromiter((self.name_id.setdefault(nm, len(self.name_id))
+                            for nm in uniq_names),
+                           dtype=np.int64, count=len(uniq_names))
+        ids = gids[inv]
+        qid, tid = ids[:n], ids[n:]
+
+        def as_void(cols):
+            keys = np.ascontiguousarray(np.stack(cols, axis=1))
+            return keys.view([("", keys.dtype)] * keys.shape[1]).reshape(-1)
+
+        strand = t.strand.astype(np.int64)
+        void = as_void([qid, tid, strand, t.qstart, t.qend, t.tstart, t.tend])
+        uniq, inv = np.unique(void, return_inverse=True)
+        first = np.full(len(uniq), n, dtype=np.int64)
+        np.minimum.at(first, inv, np.arange(n))
+        dup = first[inv] < np.arange(n)
+        if self.check_inverse:
+            ivoid = as_void([tid, qid, strand, t.tstart, t.tend,
+                             t.qstart, t.qend])
+            pos = np.clip(np.searchsorted(uniq, ivoid), 0, len(uniq) - 1)
+            dup |= (uniq[pos] == ivoid) & (first[pos] < np.arange(n))
+            dup |= self._probe_seen(ivoid)
+        seen_direct = self._probe_seen(void)
+        dup |= seen_direct
+        checked = None
+        if self.check_inverse:
+            # checked unless an earlier KEPT record has the same key (an
+            # earlier twin dropped by an inverse hit is not in the hash)
+            f = first[inv]
+            checked = ~(seen_direct | ((f < np.arange(n)) & ~dup[f]))
+        new = np.sort(void[~dup])
+        if self.seen is None:
+            self.seen = new
+        else:
+            # merge the batch's sorted keys into the sorted set
+            self.seen = np.insert(self.seen, np.searchsorted(self.seen, new),
+                                  new)
+        return ~dup, checked
+
+
+def filter_main(argv) -> int:
+    p = base_parser("paffy filter", "Filter pafs based on alignment stats")
+    p.add_argument("-s", "--minChainScore", type=int, default=-1)
+    p.add_argument("-t", "--minAlignmentScore", type=int, default=-1)
+    p.add_argument("-u", "--minIdentity", type=float, default=-1.0)
+    p.add_argument("-v", "--minIdentityWithGaps", type=float, default=-1.0)
+    p.add_argument("-w", "--maxTileLevel", type=int, default=-1)
+    p.add_argument("-x", "--invert", action="store_true",
+                   help="Only output alignments that don't pass filters")
+    args = p.parse_args(argv)
+    timer = start(args, "Paffy filter")
+
+    def step(t):
+        s = stats_calc(t)
+        m, x = s["matches"], s["mismatches"]
+        with np.errstate(invalid="ignore", divide="ignore"):
+            ident = m.astype(np.float32) / (m + x).astype(np.float32)
+            identg = (m.astype(np.float32)
+                      / (m + x + s["query_insert_bases"]
+                         + s["query_delete_bases"]).astype(np.float32))
+        # the keep condition of impl/paf_filter.c:131-133; a NaN identity
+        # fails >= as in C
+        passes = ((t.score >= args.minAlignmentScore)
+                  & (t.chain_score >= args.minChainScore)
+                  & ((args.maxTileLevel == -1)
+                     | (t.tile_level <= args.maxTileLevel))
+                  & (ident >= np.float32(args.minIdentity))
+                  & (identg >= np.float32(args.minIdentityWithGaps)))
+        keep = ~passes if args.invert else passes
+        if debug_enabled():
+            for i in np.flatnonzero(~keep):
+                log_debug("Filtering alignment with matches:%d, identity: %f "
+                          "(%f with gaps), score: %d, chain-score:%d",
+                          int(m[i]), float(ident[i]), float(identg[i]),
+                          int(t.score[i]), int(t.chain_score[i]))
+                sys.stderr.write(pafio.format_record(t, i) + "\n")
+        return t.take(keep)
+    # validated raw cigars: the reference parses its cigars
+    # (impl/paf_filter.c:123) only to sum them, and writes kept records
+    # whole, so the stats come from the cg text and the records pass
+    # through as they are; the validation keeps the parse's rejections
+    stream_transform(args, step, parse_cigars=False, validate_cigars=True)
     timer.done()
     return 0

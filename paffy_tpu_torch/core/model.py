@@ -1,5 +1,6 @@
 """Columnar (SoA) data model for PAF records (counterpart of
-paffy_tpu/core/model.py: ``PafTable`` and the cigar op codes).
+paffy_tpu/core/model.py: ``PafTable``, the cigar op codes and
+``_as_obj_array``).
 
 A batch of PAF records is held as parallel numpy arrays plus one CSR cigar
 store: the op codes and run lengths of all records in two flat arrays,
@@ -26,6 +27,15 @@ SEQ_MISMATCH = 4     # 'X'
 OP_TO_CHAR = "MID=X"
 
 INT_MAX = 2147483647  # C INT_MAX: the reference's "no score" sentinel (impl/paf.c:349)
+
+
+def _as_obj_array(values) -> np.ndarray:
+    """A 1-D object array of ``values`` (numpy would make a 2-D array of
+    equal-length tuples)."""
+    a = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        a[i] = v
+    return a
 
 
 @dataclass
@@ -65,6 +75,20 @@ class PafTable:
 
     def __len__(self) -> int:
         return len(self.qlen)
+
+    @staticmethod
+    def empty() -> "PafTable":
+        z = np.zeros(0, dtype=np.int64)
+        return PafTable(
+            qname=np.empty(0, dtype=object), qlen=z.copy(), qstart=z.copy(),
+            qend=z.copy(), strand=np.zeros(0, dtype=bool),
+            tname=np.empty(0, dtype=object), tlen=z.copy(), tstart=z.copy(),
+            tend=z.copy(), num_matches=z.copy(), num_bases=z.copy(),
+            mapq=z.copy(), score=z.copy(), tile_level=z.copy(),
+            chain_id=z.copy(), chain_score=z.copy(),
+            type=np.zeros(0, dtype=np.uint8), has_cigar=np.zeros(0, dtype=bool),
+            ops=np.zeros(0, dtype=np.uint8), lens=z.copy(),
+            off=np.zeros(1, dtype=np.int64))
 
     def take(self, idx) -> "PafTable":
         """Row-subset (and/or reorder) by integer indices or boolean mask."""

@@ -174,16 +174,28 @@ def _raw_span_first_bad(t: PafTable) -> tuple[int, int]:
     return i, (4 if qbad[i] else 5)
 
 
-def paf_check(t: PafTable, check_raw_spans: bool = False) -> None:
+def paf_check(t: PafTable, idx=None, check_raw_spans: bool = False) -> None:
     """Raise PafCheckError at the first record whose coordinates are out of
     bounds or whose cigar spans differ from its query/target lengths
-    (paf_check, impl/paf.c:427-461).
+    (paf_check, impl/paf.c:427-461).  ``idx`` (ascending record indices)
+    checks those records only; the error still names the record in ``t``.
 
     A raw-cigar table skips the span checks, as the reference does for
     unparsed cigars, unless ``check_raw_spans``: then the spans are summed
     from the cg text, for a raw-reading command whose reference parses its
     cigars and so checks them (trim, impl/paf_trim.c:116-124)."""
     if len(t) == 0:
+        return
+    if idx is not None:
+        idx = np.asarray(idx, dtype=np.int64)
+        if len(idx) == 0:
+            return
+        bad, code = native.paf_check_batch(t.take(idx))
+        if bad >= 0:
+            bad = int(idx[bad])
+            raise PafCheckError(
+                f"{_CHECK_MESSAGES[code]}, {format_record(t, bad)}",
+                table=t, record_index=bad)
         return
     bad, code = native.paf_check_batch(t)
     if check_raw_spans and t.raw_cg is not None:

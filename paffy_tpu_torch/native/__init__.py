@@ -29,6 +29,7 @@ _lock = threading.Lock()
 _lib = None
 
 _I64P = ctypes.POINTER(ctypes.c_longlong)
+_I32P = ctypes.POINTER(ctypes.c_int)
 _U8P = ctypes.POINTER(ctypes.c_ubyte)
 _U16P = ctypes.POINTER(ctypes.c_ushort)
 _LL = ctypes.c_longlong
@@ -36,6 +37,8 @@ _CP = ctypes.c_char_p
 # leading arguments of encode_serialize_sizes / _fill
 _ENC_COMMON = [_LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _U8P, _I64P, _I64P,
                _U8P, _I64P, _I64P]
+# leading arguments of shatter_serialize_sizes / _fill
+_SHAT_COMMON = [_LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _U8P, _I64P, _I64P]
 
 
 def _cpu_features() -> bytes:
@@ -143,6 +146,20 @@ _SIGNATURES = (
     ("trim_tails_raw", None, [_LL, _CP, _I64P, _I64P, _U8P, ctypes.c_float,
                               ctypes.c_float, _I64P, _I64P, _I64P, _I64P,
                               _I64P, _I64P, _LL]),
+    ("shatter_violation", _LL, [_LL, _I64P, _U8P, _I64P, _U8P, _I64P, _I64P,
+                                _I64P, _I64P, _I64P, _I64P, _I64P]),
+    ("shatter_walk", None, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P, _I64P,
+                            _U8P, _I64P, _I64P, _I64P, _I64P, _I64P, _LL]),
+    ("shatter_serialize_sizes", None, _SHAT_COMMON + [_I64P, _LL]),
+    ("shatter_serialize_fill", _LL, _SHAT_COMMON + [_I64P, _CP, _LL]),
+    ("invert_ops", None, [_LL, _I64P, _U8P, _I64P, _U8P, _U8P, _I64P, _LL]),
+    ("invert_serialize_fill", _LL, [_LL, _I64P, _U8P, _U8P, _I64P, _I64P,
+                                    _CP, _CP, _I64P, _I64P, _I64P, _CP, _LL]),
+    ("coverage_add", None, [_I32P, _I64P, _I64P, _LL]),
+    ("coverage_counts", None, [_I64P, _LL, _LL, _U16P]),
+    ("coverage_counts32", None, [_I32P, _LL, _LL, _U16P]),
+    ("rle_u16_count", _LL, [_U16P, _LL, _LL]),
+    ("rle_u16_fill", None, [_U16P, _LL, _LL, _I64P, _I64P, _I64P]),
 )
 
 
@@ -758,3 +775,216 @@ def trim_tails_raw(t, score_fraction, max_fraction,
                        *(_p_i64(a) for a in out),
                        _default_threads(n_threads))
     return out
+
+
+def shatter_violation(t):
+    """(kind, record) of the first record the reference's shatter walk dies
+    on, or (None, -1): kind "abort" for an assert (an op of length < 1, an
+    =/X op, a walk that misses the end coordinates), "check" for the
+    paf_check of an M shard (impl/paf.c:600-663)."""
+    lib = get_lib()
+    kind = np.zeros(1, dtype=np.int64)
+    r = int(lib.shatter_violation(
+        len(t.qstart), _p_i64(_i64(t.off)), _p_u8(_u8(t.ops)),
+        _p_i64(_i64(t.lens)), _p_u8(_u8(t.strand)), _p_i64(_i64(t.qstart)),
+        _p_i64(_i64(t.qend)), _p_i64(_i64(t.qlen)), _p_i64(_i64(t.tstart)),
+        _p_i64(_i64(t.tend)), _p_i64(_i64(t.tlen)), _p_i64(kind)))
+    if r < 0:
+        return None, -1
+    return ("abort" if kind[0] == 1 else "check"), r
+
+
+def shatter_walk(off, ops, lens, qstart, qend, tstart, strand, m_base, k,
+                 n_threads: int | None = None):
+    """(rec, qs, ts, ln) of every M op, k of them, by the shatter walk
+    (impl/paf.c:600-663); ``m_base`` is each record's exclusive count of M
+    ops before it."""
+    lib = get_lib()
+    rec, qs, ts, ln = (np.empty(k, dtype=np.int64) for _ in range(4))
+    lib.shatter_walk(len(off) - 1, _p_i64(_i64(off)), _p_u8(_u8(ops)),
+                     _p_i64(_i64(lens)), _p_i64(_i64(qstart)),
+                     _p_i64(_i64(qend)), _p_i64(_i64(tstart)),
+                     _p_u8(_u8(strand)), _p_i64(_i64(m_base)), _p_i64(rec),
+                     _p_i64(qs), _p_i64(ts), _p_i64(ln),
+                     _default_threads(n_threads))
+    return rec, qs, ts, ln
+
+
+def invert_ops(off, ops, lens, rev, n_threads: int | None = None):
+    """The cigar half of paf_invert: I and D swapped, and the ops of each
+    record with ``rev`` set reversed; (new_ops, new_lens)."""
+    lib = get_lib()
+    new_ops = np.empty(len(ops), dtype=np.uint8)
+    new_lens = np.empty(len(ops), dtype=np.int64)
+    lib.invert_ops(len(off) - 1, _p_i64(_i64(off)), _p_u8(_u8(ops)),
+                   _p_i64(_i64(lens)), _p_u8(_u8(rev)), _p_u8(new_ops),
+                   _p_i64(new_lens), _default_threads(n_threads))
+    return new_ops, new_lens
+
+
+def coverage_add(diff: np.ndarray, starts, ends) -> None:
+    """diff[start] += 1 and diff[end] -= 1 for each interval, in place on
+    an int32 difference array."""
+    if diff.dtype != np.int32 or not diff.flags.c_contiguous:
+        raise ValueError("diff must be a contiguous int32 array")
+    starts, ends = _i64(starts), _i64(ends)
+    get_lib().coverage_add(diff.ctypes.data_as(_I32P), _p_i64(starts),
+                           _p_i64(ends), len(starts))
+
+
+def coverage_counts(diff: np.ndarray, saturation: int) -> np.ndarray:
+    """The running sum of a coverage difference array, saturated at
+    ``saturation``, as uint16 (np.minimum(np.cumsum(diff), saturation)
+    .astype(np.uint16)); int32 differences take the 32-bit pass."""
+    lib = get_lib()
+    out = np.empty(len(diff), dtype=np.uint16)
+    if diff.dtype == np.int32:
+        d = np.ascontiguousarray(diff)
+        lib.coverage_counts32(d.ctypes.data_as(_I32P), len(d), saturation,
+                              out.ctypes.data_as(_U16P))
+    else:
+        lib.coverage_counts(_p_i64(_i64(diff)), len(diff), saturation,
+                            out.ctypes.data_as(_U16P))
+    return out
+
+
+def rle_u16(counts: np.ndarray, binary: bool):
+    """(starts, ends, vals) of the maximal runs of equal counts of a uint16
+    array (write_bed, impl/paf_to_bed.c:33-55); ``binary`` splits on the
+    count > 0 indicator instead."""
+    if counts.dtype != np.uint16:
+        raise ValueError("counts must be uint16")
+    lib = get_lib()
+    counts = np.ascontiguousarray(counts)
+    p = counts.ctypes.data_as(_U16P)
+    k = int(lib.rle_u16_count(p, len(counts), int(binary)))
+    starts, ends, vals = (np.empty(k, dtype=np.int64) for _ in range(3))
+    if len(counts):
+        lib.rle_u16_fill(p, len(counts), int(binary), _p_i64(starts),
+                         _p_i64(ends), _p_i64(vals))
+    return starts, ends, vals
+
+
+_STREAM_CHUNK = 32 << 20   # the reused fill buffer of a streamed serialize
+
+
+def _stream_two_phase(out_off, fh, fill_range, n):
+    """Write a two-pass serialization to ``fh`` in slices of about 32 MB
+    through one reused buffer: ``fill_range(r0, r1, rebased_out_off, buf)``
+    writes records [r0, r1) at offset 0 of ``buf``.  When a fill fails at
+    a record, the bytes of the records before it (``partial_bytes`` on the
+    error) are written first: the reference writes record by record."""
+    buf = np.empty(min(int(out_off[-1]), _STREAM_CHUNK) + 1, dtype=np.uint8)
+    r0 = 0
+    while r0 < n:
+        r1 = int(np.searchsorted(out_off, out_off[r0] + _STREAM_CHUNK,
+                                 side="right")) - 1
+        r1 = max(r1, r0 + 1)
+        size = int(out_off[r1] - out_off[r0])
+        if size > len(buf):       # one record larger than the slice
+            buf = np.empty(size, dtype=np.uint8)
+        rebased = np.ascontiguousarray(out_off[r0: r1 + 1] - out_off[r0])
+        try:
+            fill_range(r0, r1, rebased, buf)
+        except ValueError as e:
+            part = getattr(e, "partial_bytes", None)
+            if part:
+                fh.write(memoryview(buf.data)[:int(part)])
+            raise
+        fh.write(memoryview(buf.data)[:size])
+        r0 = r1
+
+
+def _serialize_out(out_off, fill, n, fh):
+    """Run ``fill`` over all n records: streamed into ``fh`` (then True),
+    or into one array that is returned."""
+    if fh is not None:
+        _stream_two_phase(out_off, fh, fill, n)
+        return True
+    out = np.empty(int(out_off[-1]), dtype=np.uint8)
+    fill(0, n, out_off, out)
+    return out
+
+
+def invert_serialize(t, n_threads: int | None = None, fh=None):
+    """``paffy invert``'s output of a raw-cigar table: each record with
+    query and target swapped (paf_invert, impl/paf.c:463-490) and its cg
+    text rewritten token by token (I and D swapped, the tokens of a '-'
+    record reversed), never parsed into ops.  The cigar spans are checked
+    as it goes (the reference's paf_check after the invert); the bounds
+    are the caller's.  Returns the bytes as a uint8 array, or True after
+    streaming them into ``fh``.  A span that differs from the record's
+    lengths raises PafCheckError, after ``fh`` got the records before
+    it."""
+    from paffy_tpu_torch.core.pafio import PafCheckError, _table_to_arrays
+    if t.raw_cg is None:
+        raise ValueError("invert_serialize needs a raw-cigar table")
+    lib = get_lib()
+    raw_buf, cg_start, cg_len = t.raw_cg
+    ints, flags = _table_to_arrays(t)
+    # query and target columns swapped: [tlen ts te qlen qs qe ...]
+    ints = np.ascontiguousarray(
+        ints[:, [3, 4, 5, 0, 1, 2, 6, 7, 8, 9, 10, 11, 12]])
+    name_pool, qoff, toff = _name_pool(t.qname, t.tname)
+    n = len(flags)
+    rtype = _u8(t.type)
+    cg_start, cg_len = _i64(cg_start), _i64(cg_len)
+    nt = _default_threads(n_threads)
+    # the rewrite keeps each cigar's byte length: the raw serializer's
+    # size pass, names swapped, gives the sizes
+    out_off = np.zeros(n + 1, dtype=np.int64)
+    lib.paf_serialize_sizes(n, _p_i64(ints), _p_u8(flags), _p_u8(rtype),
+                            _p_i64(toff), _p_i64(qoff), name_pool, None,
+                            None, None, None, _p_i64(cg_len),
+                            _p_i64(out_off[1:]), nt)
+    np.cumsum(out_off[1:], out=out_off[1:])
+
+    def fill(r0, r1, oo, buf):
+        rc = lib.invert_serialize_fill(
+            r1 - r0, _p_i64(ints[r0:]), _p_u8(flags[r0:]), _p_u8(rtype[r0:]),
+            _p_i64(toff[r0:]), _p_i64(qoff[r0:]), name_pool, raw_buf,
+            _p_i64(cg_start[r0:]), _p_i64(cg_len[r0:]), _p_i64(oo),
+            buf.ctypes.data_as(_CP), nt)
+        if rc == -2:
+            raise RuntimeError("invert_serialize_fill wrote other sizes than "
+                               "it measured, or met a malformed cigar")
+        if rc >= 0:
+            e = PafCheckError(
+                "Paf cigar alignment does not match query/target length "
+                f"(record {r0 + rc})")
+            e.partial_bytes = int(oo[rc])   # the records before it
+            raise e
+    return _serialize_out(out_off, fill, n, fh)
+
+
+def shatter_serialize(t, n_threads: int | None = None, fh=None):
+    """``paffy shatter``'s output: each record's cigar walked
+    (paf_shatter, impl/paf.c:600-663) and every M op written as its own
+    gapless single-op line, with no table of shards in between.  Returns
+    the bytes as a uint8 array, or True after streaming them into ``fh``.
+    The caller rejects what the reference's walk dies on first
+    (``shatter_violation``)."""
+    from paffy_tpu_torch.core.pafio import _table_to_arrays
+    lib = get_lib()
+    ints, flags = _table_to_arrays(t)
+    name_pool, qoff, toff = _name_pool(t.qname, t.tname)
+    n = len(flags)
+    rtype, ops = _u8(t.type), _u8(t.ops)
+    lens, off = _i64(t.lens), _i64(t.off)
+    nt = _default_threads(n_threads)
+    out_off = np.zeros(n + 1, dtype=np.int64)
+    lib.shatter_serialize_sizes(n, _p_i64(ints), _p_u8(flags), _p_u8(rtype),
+                                _p_i64(qoff), _p_i64(toff), name_pool,
+                                _p_u8(ops), _p_i64(lens), _p_i64(off),
+                                _p_i64(out_off[1:]), nt)
+    np.cumsum(out_off[1:], out=out_off[1:])
+
+    def fill(r0, r1, oo, buf):
+        if lib.shatter_serialize_fill(
+                r1 - r0, _p_i64(ints[r0:]), _p_u8(flags[r0:]),
+                _p_u8(rtype[r0:]), _p_i64(qoff[r0:]), _p_i64(toff[r0:]),
+                name_pool, _p_u8(ops), _p_i64(lens), _p_i64(off[r0:]),
+                _p_i64(oo), buf.ctypes.data_as(_CP), nt) != 0:
+            raise RuntimeError("shatter_serialize_fill wrote other sizes "
+                               "than it measured")
+    return _serialize_out(out_off, fill, n, fh)

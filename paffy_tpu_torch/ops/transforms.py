@@ -1,10 +1,12 @@
 """Per-record transforms over the CSR cigar store (counterpart of
 paffy_tpu/ops/transforms.py: ``stats_calc_with_m`` :48-93, ``stats_calc``
-:71, ``remove_mismatches`` :126, the fixed end trim ``trim_ends`` :220 and
-``trim_end_fraction`` :251 with their helpers, ``query_walk_violation``
-:337; the reference's paf_stats_calc impl/paf.c:236-260,
-paf_remove_mismatches impl/paf.c:786-809, paf_trim_ends and
-paf_trim_end_fraction impl/paf.c:518-598)."""
+:71, ``invert`` :96, ``remove_mismatches`` :126, the fixed end trim
+``trim_ends`` :220 and ``trim_end_fraction`` :251 with their helpers,
+``shatter`` :265, ``query_walk_violation`` :337, ``shatter_violation``
+:403; the reference's paf_stats_calc impl/paf.c:236-260, paf_invert
+impl/paf.c:469-490, paf_remove_mismatches impl/paf.c:786-809,
+paf_trim_ends and paf_trim_end_fraction impl/paf.c:518-598, paf_shatter
+impl/paf.c:600-663)."""
 
 from __future__ import annotations
 
@@ -48,6 +50,18 @@ def aligned_base_counts(t: PafTable) -> np.ndarray:
     (paf_get_number_of_aligned_bases, impl/paf.c:507-516)."""
     return segment_sums_by_offsets(np.where(_ALIGNED[t.ops], t.lens, 0),
                                    t.off)
+
+
+def invert(t: PafTable) -> PafTable:
+    """Query and target swapped, I and D swapped, and the ops of each '-'
+    record reversed (paf_invert), the cigar half in one native pass."""
+    ops, lens = t.ops, t.lens
+    if len(t.ops):
+        ops, lens = native.invert_ops(t.off, t.ops, t.lens, ~t.strand)
+    return replace(
+        t, qname=t.tname, qlen=t.tlen, qstart=t.tstart, qend=t.tend,
+        tname=t.qname, tlen=t.qlen, tstart=t.qstart, tend=t.qend,
+        ops=ops, lens=lens)
 
 
 def remove_mismatches(t: PafTable) -> PafTable:
@@ -179,3 +193,44 @@ def query_walk_violation(t: PafTable, seen_qlens: dict | None = None) -> int:
         if len(nb):
             bad = min(bad, int(nb[0]))
     return -1 if bad == n else bad
+
+
+def shatter(t: PafTable) -> PafTable:
+    """Every M op as a gapless record of its own (paf_shatter): the
+    parent's names, lengths, strand, mapq, score, tile level, type and
+    chain id, chain_score 0 (the reference's calloc'd default), the run
+    length as matches and bases, and a '-' record's shards walking down the
+    query from qend; the coordinate walk in one native pass."""
+    if np.any((t.ops == SEQ_MATCH) | (t.ops == SEQ_MISMATCH)):
+        raise ValueError("paf shatter requires M-encoded cigars (no =/X runs)")
+    if len(t.ops) == 0:
+        return PafTable.empty()
+    m_base = np.zeros(len(t) + 1, dtype=np.int64)
+    np.cumsum(segment_sums_by_offsets((t.ops == MATCH).astype(np.int64),
+                                      t.off), out=m_base[1:])
+    k = int(m_base[-1])
+    rec, q_m, t_m, ln = native.shatter_walk(t.off, t.ops, t.lens, t.qstart,
+                                            t.qend, t.tstart, t.strand,
+                                            m_base[:-1], k)
+    return PafTable(
+        qname=t.qname[rec], qlen=t.qlen[rec], qstart=q_m, qend=q_m + ln,
+        strand=t.strand[rec], tname=t.tname[rec], tlen=t.tlen[rec],
+        tstart=t_m, tend=t_m + ln, num_matches=ln.copy(),
+        num_bases=ln.copy(), mapq=t.mapq[rec], score=t.score[rec],
+        tile_level=t.tile_level[rec], chain_id=t.chain_id[rec],
+        chain_score=np.zeros(k, dtype=np.int64), type=t.type[rec],
+        has_cigar=np.ones(k, dtype=bool),
+        ops=np.full(k, MATCH, dtype=np.uint8), lens=ln.astype(np.int64),
+        off=np.arange(k + 1, dtype=np.int64))
+
+
+def shatter_violation(t: PafTable):
+    """(kind, record) of the first record the reference's shatter dies on,
+    or (None, -1), in one native pass.  Its walk asserts that every op has
+    length >= 1 and is M, I or D, and that the walk ends on the record's
+    end coordinates: kind "abort" (SIGABRT, the stdio tail is lost); and it
+    paf_checks every M shard it builds: kind "check" (st_errAbort, the
+    tail is flushed) (impl/paf.c:600-663, the shard check at :624)."""
+    if len(t) == 0 or len(t.ops) == 0:
+        return None, -1
+    return native.shatter_violation(t)

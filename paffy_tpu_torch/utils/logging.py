@@ -1,13 +1,22 @@
-"""Leveled logging with the reference's sonLib logger semantics
-(counterpart of paffy_tpu/utils/logging.py, without its JAX profiler hook).
+"""Leveled logging with the reference's sonLib logger semantics, and the
+profiler hook (counterpart of paffy_tpu/utils/logging.py).
 
 A process-wide level set from the --logLevel flag (off, critical, info,
 debug; critical by default); messages go to stderr.
+
+``PAFFY_TPU_PROFILE=<dir>`` wraps each command, from its ``CommandTimer``
+to ``done()``, in a ``torch.profiler`` run: CPU activity, and CUDA
+activity when the command's platform is a card (``PAFFY_TPU_PLATFORM``
+unset, ``cuda`` or ``gpu``, and a CUDA device present).  One Chrome trace
+per command is written into <dir>, named after the command and the
+process id.  Without the variable the profiler is neither imported nor
+started.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import sys
 import time
 
@@ -18,6 +27,8 @@ _LEVELS = {
     "info": logging.INFO,
     "debug": logging.DEBUG,
 }
+
+PROFILE_ENV = "PAFFY_TPU_PROFILE"
 
 logger = logging.getLogger("paffy_tpu_torch")
 _handler = logging.StreamHandler(sys.stderr)
@@ -33,17 +44,56 @@ def set_log_level_from_string(level: str | None) -> None:
     logger.setLevel(_LEVELS[key])
 
 
+def get_log_level() -> int:
+    return logger.level
+
+
 def log_info(msg: str, *args) -> None:
     logger.info(msg, *args)
 
 
+def log_debug(msg: str, *args) -> None:
+    logger.debug(msg, *args)
+
+
+def log_critical(msg: str, *args) -> None:
+    logger.critical(msg, *args)
+
+
+def debug_enabled() -> bool:
+    return logger.isEnabledFor(logging.DEBUG)
+
+
+def _start_profiler():
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    plat = os.environ.get("PAFFY_TPU_PLATFORM", "").strip().lower()
+    if plat in ("", "cuda", "gpu") and torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    return prof
+
+
 class CommandTimer:
-    """The reference's '<tool> is done!, N seconds have elapsed' line."""
+    """The reference's '<tool> is done!, N seconds have elapsed' line, and
+    the command's profiler run under PAFFY_TPU_PROFILE."""
 
     def __init__(self, name: str):
         self.name = name
         self.start = time.time()
+        self._trace_dir = os.environ.get(PROFILE_ENV)
+        self._prof = _start_profiler() if self._trace_dir else None
 
     def done(self) -> None:
+        if self._prof is not None:
+            self._prof.stop()
+            os.makedirs(self._trace_dir, exist_ok=True)
+            stem = "_".join(self.name.lower().split())
+            path = os.path.join(self._trace_dir,
+                                f"{stem}.{os.getpid()}.pt.trace.json")
+            self._prof.export_chrome_trace(path)
+            log_info("profiler trace written to %s", path)
         log_info("%s is done!, %d seconds have elapsed",
                  self.name, int(time.time() - self.start))

@@ -23,12 +23,14 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from paffy_tpu import native as ref_native  # noqa: E402
+from paffy_tpu.cli import faffy_main as ref_faffy  # noqa: E402
 from paffy_tpu.cli import paffy_main as ref_main  # noqa: E402
 from paffy_tpu.core import pafio as ref_pafio  # noqa: E402
 from paffy_tpu.ops import mismatch as ref_mm  # noqa: E402
 from paffy_tpu.ops import segments as ref_segments  # noqa: E402
 from paffy_tpu.ops import transforms as ref_transforms  # noqa: E402
 from paffy_tpu_torch import native  # noqa: E402
+from paffy_tpu_torch.cli import faffy_main as port_faffy  # noqa: E402
 from paffy_tpu_torch.cli import paffy_main as port_main  # noqa: E402
 from paffy_tpu_torch.core import pafio  # noqa: E402
 from paffy_tpu_torch.ops import mismatch as port_mm  # noqa: E402
@@ -144,6 +146,17 @@ def test_paf_check(case):
         got = (str(e), e.record_index)
     assert got == want
     assert (want is None) == (case == "clean")
+    # a subset of the records (dedupe -a's check), the bad one in or out
+    for idx in (np.arange(0, len(t), 2), np.arange(1, len(t), 2),
+                np.arange(len(t) - 1), np.zeros(0, dtype=np.int64)):
+        outcomes = []
+        for mod, tab in ((pafio, t), (ref_pafio, r)):
+            try:
+                mod.paf_check(tab, idx=idx)
+                outcomes.append(None)
+            except mod.PafCheckError as e:
+                outcomes.append((str(e), e.record_index))
+        assert outcomes[0] == outcomes[1]
 
 
 FASTAS = {
@@ -402,6 +415,204 @@ def test_read_table_and_stream_transform_flags(tmp_path):
         assert seen["port"] == seen["ref"]
 
 
+SHATTER_CASES = {
+    "clean": "",
+    "eq-op": "q\t10\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:2=3X\n",
+    "zero-op": "q\t10\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:0I5M\n",
+    "walk": "q\t10\t0\t6\t-\tt\t10\t0\t5\t5\t5\t60\tcg:Z:5M\n",
+    "shard": "q\t4\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:5M\n",
+}
+
+
+def shatter_table(case, mod):
+    text = workload_text(23) + SHATTER_CASES[case] + workload_text(24)
+    return mod.parse_paf_text(text)
+
+
+@pytest.mark.parametrize("case", list(SHATTER_CASES))
+def test_shatter_violation_and_its_native_pass(case):
+    t, r = shatter_table(case, pafio), shatter_table(case, ref_pafio)
+    want = ref_transforms.shatter_violation(r)
+    assert transforms.shatter_violation(t) == want
+    assert native.shatter_violation(t) == ref_native.shatter_violation(r)
+    assert (want[0] is None) == (case == "clean")
+    assert want[0] in (None, "check" if case == "shard" else "abort")
+
+
+@pytest.mark.parametrize("seed", [25, 26])
+def test_shatter_and_its_native_passes(seed):
+    data = workload_text(seed).encode()
+    t, r = pafio.parse_paf_data(data), ref_pafio.parse_paf_data(data)
+    assert_tables_equal(transforms.shatter(t), ref_transforms.shatter(r))
+    m_base = np.concatenate([[0], np.cumsum(
+        [np.count_nonzero(t.ops[a:b] == 0) for a, b in zip(t.off, t.off[1:])])])
+    args = (t.off, t.ops, t.lens, t.qstart, t.qend, t.tstart, t.strand,
+            m_base[:-1], int(m_base[-1]))
+    for a, b in zip(native.shatter_walk(*args), ref_native.shatter_walk(*args)):
+        np.testing.assert_array_equal(a, b)
+    want = bytes(ref_native.shatter_serialize(r))
+    assert want == bytes(ref_pafio.serialize_paf_bytes(ref_transforms.shatter(r)))
+    for nt in (1, 3, 8):      # the bytes do not depend on the threads
+        assert bytes(native.shatter_serialize(t, n_threads=nt)) == want
+    enc = pafio.parse_paf_data(data.replace(b"M", b"="))
+    with pytest.raises(ValueError, match="M-encoded"):
+        transforms.shatter(enc)
+    assert transforms.shatter(t.take(np.zeros(0, dtype=np.int64))).qname.size == 0
+
+
+@pytest.mark.parametrize("mode", ["parsed", "raw"])
+def test_invert_and_its_native_passes(mode):
+    data = (workload_text(27) + TAGGED.replace("03M", "3M")).encode()
+    kw = dict(parse_cigars=False) if mode == "raw" else {}
+    t, r = pafio.parse_paf_data(data, **kw), ref_pafio.parse_paf_data(data, **kw)
+    if mode == "parsed":
+        assert_tables_equal(transforms.invert(t), ref_transforms.invert(r))
+        for a, b in zip(native.invert_ops(t.off, t.ops, t.lens, ~t.strand),
+                        ref_native.invert_ops(r.off, r.ops, r.lens, ~r.strand)):
+            np.testing.assert_array_equal(a, b)
+        return
+    want = bytes(ref_native.invert_serialize(r))
+    for nt in (1, 3, 8):
+        assert bytes(native.invert_serialize(t, n_threads=nt)) == want
+
+
+class Sink:
+    def __init__(self):
+        self.data = b""
+
+    def write(self, b):
+        self.data += bytes(b)
+
+
+@pytest.mark.parametrize("chunk", [64, 1000, 1 << 25])
+def test_streamed_serializers_and_a_span_failure(monkeypatch, chunk):
+    # slices of the reused fill buffer, one record larger than a slice,
+    # and the bytes before a record whose cigar span fails
+    monkeypatch.setattr(native, "_STREAM_CHUNK", chunk)
+    monkeypatch.setattr(ref_native, "_STREAM_CHUNK", chunk)
+    bad = "q\t10\t0\t5\t+\tt\t10\t0\t5\t5\t5\t60\tcg:Z:4M\n"
+    for text in (workload_text(28), workload_text(28) + bad
+                 + workload_text(29)):
+        outs = []
+        for mod, pio in ((native, pafio), (ref_native, ref_pafio)):
+            t = pio.parse_paf_data(text.encode(), parse_cigars=False)
+            sink = Sink()
+            try:
+                res = mod.invert_serialize(t, fh=sink)
+            except pio.PafCheckError as e:
+                res = str(e)
+            outs.append((res, sink.data))
+            sink = Sink()
+            tp = pio.parse_paf_data(workload_text(30).encode())
+            assert mod.shatter_serialize(tp, fh=sink) is True
+            outs.append(sink.data)
+        assert outs[:2] == outs[2:]
+        assert outs[0][1]
+
+
+@pytest.mark.parametrize("binary", [False, True])
+def test_coverage_map_and_run_length_rows(binary):
+    from paffy_tpu.ops import coverage as ref_coverage
+    from paffy_tpu_torch.ops import coverage
+    maps = [coverage.CoverageMap(), ref_coverage.CoverageMap()]
+    data = workload_text(31).encode()
+    tt, rr = pafio.parse_paf_data(data), ref_pafio.parse_paf_data(data)
+    half = len(tt) // 2
+    for rows in (np.arange(half), np.arange(half, len(tt))):   # two batches
+        t, r = tt.take(rows), rr.take(rows)
+        names = np.column_stack([t.qname, t.tname]).ravel()
+        lens = np.column_stack([t.qlen, t.tlen]).ravel()
+        np.testing.assert_array_equal(maps[0].register_batch(names, lens),
+                                      maps[1].register_batch(names, lens))
+        maps[0].add(t)
+        maps[1].add(r)
+        maps[0].add(transforms.invert(t))
+        maps[1].add(ref_transforms.invert(r))
+    assert maps[0].names == maps[1].names and maps[0].lengths == maps[1].lengths
+    for name in maps[1].names:
+        got, want = maps[0].counts(name), maps[1].counts(name)
+        assert got.dtype == want.dtype == np.uint16
+        np.testing.assert_array_equal(got, want)
+        for a, b in zip(coverage.run_length_rows(got, binary),
+                        ref_coverage.run_length_rows(want, binary)):
+            np.testing.assert_array_equal(a, b)
+    for m in maps:
+        with pytest.raises(ValueError, match="inconsistent lengths"):
+            m.register_batch(np.array([maps[1].names[0]], dtype=object),
+                             np.array([7]))
+    empty = np.zeros(0, dtype=np.uint16)
+    for a, b in zip(coverage.run_length_rows(empty, binary),
+                    ref_coverage.run_length_rows(empty, binary)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_native_coverage_passes():
+    rng = np.random.default_rng(33)
+    n = 5000
+    starts = rng.integers(0, n, 3000)
+    ends = np.minimum(starts + rng.integers(0, 400, 3000), n)
+    diffs = [np.zeros(n + 1, dtype=np.int32) for _ in range(2)]
+    native.coverage_add(diffs[0], starts, ends)
+    assert ref_native.coverage_add(diffs[1], starts, ends)
+    np.testing.assert_array_equal(diffs[0], diffs[1])
+    for d in (diffs[0][:-1], diffs[0][:-1].astype(np.int64)):
+        for sat in (3, 32766):
+            np.testing.assert_array_equal(native.coverage_counts(d, sat),
+                                          ref_native.coverage_counts(d, sat))
+    counts = native.coverage_counts(diffs[0][:-1], 5)
+    for binary in (False, True):
+        for a, b in zip(native.rle_u16(counts, binary),
+                        ref_native.rle_u16(counts, binary)):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError):
+        native.coverage_add(diffs[0].astype(np.int64), starts, ends)
+
+
+@pytest.mark.parametrize("header", [
+    "n|20x|5", "a|b|100| 7", "t|30|+2", "chr1|1000|-3", "x|1|2|3",
+    "x|1", "n|20|x", "plain"])
+def test_header_codec(header):
+    from paffy_tpu.core import fasta as ref_fasta
+    from paffy_tpu_torch.core import fasta
+    try:
+        want = ref_fasta.decode_header(header)
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            fasta.decode_header(header)
+        assert str(got.value) == str(e)
+        return
+    got = fasta.decode_header(header)
+    assert (got.name, got.start, got.end, got.length) == (
+        want.name, want.start, want.end, want.length)
+    assert fasta.encode_header(got.name, got.length, got.start) == \
+        ref_fasta.encode_header(want.name, want.length, want.start)
+
+
+@pytest.mark.parametrize("name", list(FASTAS))
+def test_fasta_text_readers_and_writers(name):
+    import io
+    from paffy_tpu.core import fasta as ref_fasta
+    from paffy_tpu_torch.core import fasta
+    text = FASTAS[name]
+    assert fasta.read_fasta_list(io.StringIO(text)) == \
+        ref_fasta.read_fasta_list(io.StringIO(text))
+    assert list(fasta.read_fasta(io.StringIO(text)).items()) == \
+        list(ref_fasta.read_fasta(io.StringIO(text)).items())
+    for width in (0, 1, 3, 80):
+        outs = []
+        for mod in (fasta, ref_fasta):
+            fh = io.StringIO()
+            for header, seq in mod.read_fasta_list(io.StringIO(text)):
+                mod.write_fasta_record(fh, header, seq, width)
+            w = mod.SequenceLineWriter(fh, width)
+            for piece in ("ACG", "", "T" * 7, "GG"):
+                w.piece(piece)
+            w.end()
+            w.end()
+            outs.append(fh.getvalue())
+        assert outs[0] == outs[1]
+
+
 def smoke_files(d, ref: bool, **sizes):
     """chip_smoke.py's synthesis through paffy_tpu's native library (ref)
     or the port's."""
@@ -468,8 +679,8 @@ def make_pins(d) -> dict:
     view -s -t, add_mismatches, and add_mismatches -a on that output, on
     those files (its host routes); chip_smoke.tile_input made from that
     output, and paffy_tpu's tile on it; paffy_tpu's shatter of in.paf
-    (which chip_smoke.chain_input writes itself) and pipeline_pins on
-    it."""
+    (which chip_smoke.chain_input writes itself) and pipeline_pins on it;
+    chip_smoke.host_phase through paffy_tpu's commands."""
     os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
     fa, paf, w = smoke_files(d, True)
     pins = {"seqs.fa": chip_smoke.sha256_file(fa),
@@ -496,7 +707,45 @@ def make_pins(d) -> dict:
     assert pathlib.Path(cpaf).read_bytes() == chip_smoke.chain_input(w)
     pins["chain.paf"] = chip_smoke.sha256_file(cpaf)
     pins.update(pipeline_pins(d, fa, cpaf))
+    hd = os.path.join(d, "host")
+    os.makedirs(hd)
+    digests, walls = chip_smoke.host_phase(
+        hd, paf, fa, cpaf, tpaf, os.path.join(d, "pipe_tile.paf"), ref_main,
+        ref_faffy)
+    for tag, sec in walls.items():
+        print(f"paffy_tpu {tag}: {sec:.2f} s on the host")
+    assert digests["dechunk"] == pins["in.paf"]
+    pins.update(digests)
     return pins
+
+
+HOST_PINS = ("invert in.paf", "invert chain.paf", "dedupe -a", "filter -w 1",
+             "filter -u 0.97", "to_bed", "to_bed -b -n", "to_bed -e -m 100",
+             "split_file -q -m", "faffy chunk", "faffy merge",
+             "faffy extract", "upconvert", "dechunk")
+
+
+def test_smoke_host_phase_equals_paffy_tpus(tmp_path):
+    """chip_smoke.host_phase at a small size: the port's commands give
+    paffy_tpu's digests, one for each pin of the phase."""
+    fa, paf, w = smoke_files(tmp_path / "in", True, **SMALL)
+    cpaf, tpaf = str(tmp_path / "chain.paf"), str(tmp_path / "tile.paf")
+    pathlib.Path(cpaf).write_bytes(chip_smoke.chain_input(
+        w, seq_len=SMALL["seq_len"]))
+    am = tmp_path / "am.paf"
+    assert ref_main(["add_mismatches", "-i", paf, fa, "-o", str(am)]) == 0
+    pathlib.Path(tpaf).write_bytes(chip_smoke.tile_input(am.read_bytes()))
+    pipe_tile = str(tmp_path / "pipe_tile.paf")
+    assert ref_main(["tile", "-i", str(am), "-o", pipe_tile]) == 0
+    got = []
+    for tag, mains in (("ref", (ref_main, ref_faffy)),
+                       ("port", (port_main, port_faffy))):
+        os.makedirs(tmp_path / tag)
+        got.append(chip_smoke.host_phase(str(tmp_path / tag), paf, fa, cpaf,
+                                         tpaf, pipe_tile, *mains)[0])
+    assert got[0] == got[1]
+    assert sorted(got[0]) == sorted(HOST_PINS)
+    assert got[0]["dechunk"] == chip_smoke.sha256_file(paf)
 
 
 def test_pins_are_digests():
@@ -504,7 +753,7 @@ def test_pins_are_digests():
         "seqs.fa", "in.paf", "view -s", "view -s -t", "add_mismatches",
         "add_mismatches -a", "tile.paf", "tile", "chain.paf", "chain",
         "pipeline add_mismatches", "pipeline chain", "pipeline tile",
-        "pipeline trim", "run_pipeline"}
+        "pipeline trim", "run_pipeline", *HOST_PINS}
     for v in chip_smoke.PINS.values():
         assert len(v) == 64 and int(v, 16) >= 0
     assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()

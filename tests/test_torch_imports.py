@@ -1,8 +1,9 @@
 """paffy_tpu_torch stands alone: an AST scan of every file of the port (and
-of chip_smoke.py and bin/paffy-torch) finds no import of JAX or of
-paffy_tpu, in any body, and no string that runs a paffy_tpu module in a
-subprocess; and a run of each ported command in a fresh interpreter ends
-with neither ``jax`` nor any ``paffy_tpu`` module loaded."""
+of chip_smoke.py, bin/paffy-torch and bin/faffy-torch) finds no import of
+JAX or of paffy_tpu, in any body, and no string that runs a paffy_tpu
+module in a subprocess; and a run of commands of the port (device and host
+commands of paffy, and faffy's) in a fresh interpreter ends with neither
+``jax`` nor any ``paffy_tpu`` module loaded."""
 
 import ast
 import os
@@ -15,7 +16,8 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "paffy_tpu_torch").rglob("*.py")) + [
-    REPO / "chip_smoke.py", REPO / "bin" / "paffy-torch"]
+    REPO / "chip_smoke.py", REPO / "bin" / "paffy-torch",
+    REPO / "bin" / "faffy-torch"]
 
 # a command string that runs paffy_tpu: python -c "from paffy_tpu...",
 # python -m paffy_tpu..., or one of its launchers as a program path
@@ -160,15 +162,25 @@ def test_port_view_runs_without_loading_jax(tmp_path):
     (["trim", "-i", "in.paf"], "\t60\tAS:i:0\tcg:Z:10M"),
     (["trim", "-f", "-t", "0.2", "-i", "in.paf"],
      "\t1\t9\t+\tt\t10\t1\t9\t10\t10\t60\tAS:i:0\tcg:Z:8M"),
+    (["shatter", "-i", "in.paf"], "\t60\tAS:i:0\ts1:i:0\tcg:Z:10M"),
+    (["to_bed", "-i", "in.paf"], "q 0 10 1\n"),
+    (["faffy", "extract", "-i", "s.bed", "-f", "0", "-m", "1", "s.fa"],
+     ">t|10|2\nGTTCG\n"),
+    (["faffy", "chunk", "-d", "chunks", "-c", "4", "-o", "1", "s.fa"],
+     "chunks/0.fa\n"),
 ], ids=["add_mismatches", "add_mismatches-a", "tile", "chain", "trim",
-        "trim-f"])
+        "trim-f", "shatter", "to_bed", "faffy-extract", "faffy-chunk"])
 def test_port_commands_run_without_loading_jax(tmp_path, argv, first):
     (tmp_path / "s.fa").write_text(">q\nACGTACGTAC\n>t\nACGTTCGTAC\n")
     (tmp_path / "in.paf").write_text(
         "q\t10\t0\t10\t+\tt\t10\t0\t10\t10\t10\t60\tcg:Z:10M\n")
+    (tmp_path / "s.bed").write_text("t\t2\t7\n")
+    main = "paffy_main"
+    if argv[0] == "faffy":
+        main, argv = "faffy_main", argv[1:]
     code = ("import sys\n"
-            "from paffy_tpu_torch.cli import paffy_main\n"
-            "rc = paffy_main(sys.argv[1:])\n"
+            f"from paffy_tpu_torch.cli import {main}\n"
+            f"rc = {main}(sys.argv[1:])\n"
             "loaded = [m for m in sys.modules if m in ('jax', 'paffy_tpu')\n"
             "          or m.startswith(('jax.', 'paffy_tpu.'))]\n"
             "assert not loaded, f'modules were imported: {loaded}'\n"

@@ -2,7 +2,8 @@
 the CPU (PAFFY_TPU_PLATFORM=cpu): -s, -t, -a, failing -u/-v asserts, the
 float32 threshold boundaries of tests/test_parity_corners.py, and the prefix
 printed before a missing sequence aborts.  Also the device rule: with the
-variable unset and no CUDA device, the port raises."""
+variable unset and no CUDA device, the port raises; and an unknown command
+name."""
 
 import numpy as np
 import pytest
@@ -114,6 +115,13 @@ def test_device_rule(monkeypatch):
 
 
 def test_unported_commands_exit_1(capsys):
-    assert port_main(["shatter", "-i", "x.paf"]) == 1
-    assert "not ported" in capsys.readouterr().err
-    assert port_main([]) == 0
+    # every command is ported: an unknown name exits 1 with paffy_tpu's
+    # message and usage, for paffy and for faffy
+    from paffy_tpu_torch.cli import faffy_main
+    for main, tool in ((port_main, "paffy"), (faffy_main, "faffy")):
+        assert main(["no_such_command", "-i", "x.paf"]) == 1
+        err = capsys.readouterr().err
+        assert err.startswith(f"no_such_command is not a valid {tool} "
+                              f"command\n{tool}: ")
+        assert main([]) == 0
+        assert capsys.readouterr().err.startswith(f"{tool}: ")
