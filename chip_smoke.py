@@ -3,8 +3,9 @@
 ``add_mismatches``, ``tile``, ``chain`` and ``trim``, the fused
 ``add_mismatches | chain | tile | trim`` pipeline, the (data, seq) mesh
 path and the multi-process runner, at chromosome scale through the port's
-CUDA kernels; every host-only paffy and faffy command at the same scale;
-and ``chain`` under the profiler hook (PAFFY_TPU_PROFILE).
+CUDA kernels; every host-only paffy and faffy command at the same scale,
+in process and through the native fast lane (bin/paffy-torch); and
+``chain`` under the profiler hook (PAFFY_TPU_PROFILE).
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -12,7 +13,8 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build   -- nvcc builds csrc/*.cu for sm_90a, one nvcc per source, all
               at once (their -Xptxas -v lines are printed), and g++ the
-              port's native host library.
+              native fast lane (native.build_fast) and the port's native
+              host library.
 2. synth   -- a seeded workload at the scale of a human-chimp chr10 pair:
               two 135 Mbp sequences (soft-masked, with runs of N), 208 PAF
               records, 1.25e8 M columns in runs of median ~420 columns split
@@ -72,6 +74,19 @@ Phases (any failure exits non-zero and prints no result line):
               faffy chunk, merge and extract, upconvert and dechunk at full
               size, each output's digest pinned to paffy_tpu's, no kernel
               launched; each command's wall is printed.
+   fast lane -- the fast lane's binary, fresh as bin/paffy-torch tests it;
+              fast_lane_phase: invert of in.paf and chain.paf, dedupe -a of
+              twins.paf, filter -w 1 and -u 0.97, split_file -q -m,
+              dechunk of up.paf, shatter of in.paf and trim of the
+              pipeline's tile output through bin/paffy-torch in
+              subprocesses, each running no Python and each output held to
+              the existing pin of the same output; FAST_TIMED on in.paf and
+              chain.paf, each timed from process start to exit as the
+              binary alone, through the dispatcher and through the Python
+              lane (PAFFY_TPU_NO_FAST=1), the lanes' outputs equal; a
+              Python-lane dedupe under PYTHONPROFILEIMPORTTIME imports no
+              torch module; and view -s and chain through bin/paffy-torch
+              on the card, pinned.
    profile -- ``chain`` on chain.paf under PAFFY_TPU_PROFILE (after one
               warm-up run of the profiler, which starts CUPTI): its output
               pinned, one Chrome trace written, holding device events of
@@ -128,6 +143,7 @@ import hashlib
 import io
 import json
 import os
+import shutil
 import socket
 import statistics
 import subprocess
@@ -222,6 +238,31 @@ SPLIT_MIN_LENGTH = 200_000_000
 # the multi-batch runs of view -s and add_mismatches: in.paf in this many
 # streaming batches or more
 MIN_BATCHES = 4
+# the fast lane phase: its pinned runs through bin/paffy-torch, each
+# (pin, argv, input file); the input files are in.paf, chain.paf, and
+# host_phase's twins.paf and up.paf, and the pipeline's tile output
+FAST_RUNS = (
+    ("invert in.paf", ["invert"], "in.paf"),
+    ("invert chain.paf", ["invert"], "chain.paf"),
+    ("dedupe -a", ["dedupe", "-a"], "twins.paf"),
+    ("filter -w 1", ["filter", "-w", "1"], "pipe_tile.paf"),
+    ("filter -u 0.97", ["filter", "-u", "0.97"], "pipe_tile.paf"),
+    ("split_file -q -m", ["split_file", "-q", "-m", str(SPLIT_MIN_LENGTH)],
+     "twins.paf"),
+    ("dechunk", ["dechunk"], "up.paf"),
+    ("chain.paf", ["shatter"], "in.paf"),      # shatter of in.paf
+    ("pipeline trim", ["trim"], "pipe_tile.paf"),
+)
+# its timed runs, on in.paf and on chain.paf (dechunk on their names with
+# "|length|0" provenance, see with_provenance), as the binary alone, through
+# the dispatcher and through the Python lane
+FAST_TIMED = {"invert": ["invert"], "dedupe -a": ["dedupe", "-a"],
+              "filter -u 0.97": ["filter", "-u", "0.97"], "trim": ["trim"],
+              "shatter": ["shatter"],
+              "split_file -q -m": ["split_file", "-q", "-m",
+                                   str(SPLIT_MIN_LENGTH)],
+              "dechunk": ["dechunk"]}
+FAST_REPS = 3
 K6_EDGE_LABELS = ("wide windows", "ties, zero gaps, g == score",
                   "tgap at max_gap", "mirrored coordinates", "past 2^40",
                   "groups of 0 and 1", "many groups and a large one")
@@ -604,6 +645,133 @@ def host_phase(d, paf, fa, cpaf, tpaf, pipe_tile, paffy, faffy):
     return digests, walls
 
 
+def with_provenance(paf: bytes) -> bytes:
+    """Each record's query and target names as faffy chunk writes a chunk's
+    (``name|length|0``): dechunk of the result is ``paf`` again."""
+    out = []
+    for line in paf.splitlines(keepends=True):
+        f = line.split(b"\t")
+        f[0] = b"%s|%s|0" % (f[0], f[1])
+        f[5] = b"%s|%s|0" % (f[5], f[6])
+        out.append(b"\t".join(f))
+    return b"".join(out)
+
+
+# Starts one command and times it from its start to its exit, from a small
+# process of its own, as a user's shell starts it: not from chip_smoke.py's
+# process, which holds the card's context and gigabytes of pages.  Reads
+# [argv, env] as JSON on stdin, writes [seconds, exit code, stderr].
+_SPAWN_TIMER = """
+import json, subprocess, sys, time
+argv, env = json.load(sys.stdin)
+t0 = time.perf_counter()
+r = subprocess.run(argv, env=env, stdout=subprocess.DEVNULL,
+                   stderr=subprocess.PIPE)
+json.dump([time.perf_counter() - t0, r.returncode,
+           r.stderr.decode("latin-1")], sys.stdout)
+"""
+
+
+def fast_lane_phase(d, files, reps=FAST_REPS):
+    """The native fast lane through the dispatcher bin/paffy-torch, in
+    subprocesses, in the directory ``d``; ``files`` maps each input name of
+    FAST_RUNS to its path.  Each run of FAST_RUNS must exec the binary and
+    no Python (PYTHONVERBOSE shows none); each command of FAST_TIMED on
+    in.paf and chain.paf is timed from process start to exit (by
+    _SPAWN_TIMER), ``reps`` times in each of three lanes: the binary run
+    directly ("binary"), through the dispatcher ("fast") and the Python
+    lane ("python", PAFFY_TPU_NO_FAST=1), each run exiting 0 with the same
+    output in all three; one Python-lane run under PYTHONPROFILEIMPORTTIME
+    must import the port's command modules and no torch module (its
+    largest imports are printed).  Returns ({pin: SHA-256 of the output},
+    {"<lane> <command> <input>": [wall seconds]})."""
+    dispatcher = os.path.join(REPO, "bin", "paffy-torch")
+    binary = os.path.join(REPO, "paffy_tpu_torch", "_build", "paffy_fast")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PAFFY_TPU_NO_FAST", "PAFFY_TPU_PROFILE",
+                        "PAFFY_TPU_FAST_MAX_BYTES", "PAFFY_TPU_PLATFORM",
+                        "PYTHONVERBOSE", "PYTHONPROFILEIMPORTTIME")}
+
+    def run(argv, out, extra=None, program=dispatcher):
+        """``program argv`` writing ``out`` (a file, or split_file's
+        directory), started and timed by _SPAWN_TIMER; returns (wall
+        seconds, stderr)."""
+        if argv[0] == "split_file":
+            os.makedirs(out)
+            argv = [*argv, "-p", os.path.join(out, "part_")]
+        else:
+            argv = [*argv, "-o", out]
+        timer = subprocess.run(
+            [sys.executable, "-S", "-c", _SPAWN_TIMER], capture_output=True,
+            text=True, timeout=600, input=json.dumps(
+                [[program, *argv], {**env, **(extra or {})}]))
+        if timer.returncode != 0:
+            raise AssertionError(timer.stderr[-2000:])
+        wall, rc, err = json.loads(timer.stdout)
+        if rc != 0:
+            raise AssertionError(f"{program} {' '.join(argv)} exited with "
+                                 f"{rc}: {err[-2000:]}")
+        return wall, err
+
+    def digest(argv, out):
+        if argv[0] == "split_file":
+            return files_digest(sorted(os.path.join(out, f)
+                                       for f in os.listdir(out)), out)
+        return sha256_file(out)
+
+    digests, walls = {}, {}
+    for k, (pin, argv, name) in enumerate(FAST_RUNS):
+        out = os.path.join(d, f"fast_{k}")
+        _, err = run([*argv, "-i", files[name]], out, {"PYTHONVERBOSE": "1"})
+        if "import '" in err:
+            raise AssertionError(f"the fast lane's {pin} ran Python")
+        digests[pin] = digest(argv, out)
+    for name in ("in.paf", "chain.paf"):
+        with open(files[name], "rb") as fh:
+            prov = os.path.join(d, f"prov_{name}")
+            with open(prov, "wb") as out:
+                out.write(with_provenance(fh.read()))
+        for label, argv in FAST_TIMED.items():
+            src = prov if argv[0] == "dechunk" else files[name]
+            seen = set()
+            for lane, program, extra in (
+                    ("binary", binary, {}), ("fast", dispatcher, {}),
+                    ("python", dispatcher, {"PAFFY_TPU_NO_FAST": "1"})):
+                key = f"{lane} {label} {name}"
+                walls[key] = []
+                for r in range(reps):
+                    out = os.path.join(d, "timed")
+                    walls[key].append(
+                        run([*argv, "-i", src], out, extra, program)[0])
+                    seen.add(digest(argv, out))
+                    if os.path.isdir(out):
+                        shutil.rmtree(out)
+                    else:
+                        os.remove(out)
+            if len(seen) != 1:
+                raise AssertionError(f"{label} of {name}: the lanes' "
+                                     f"outputs differ")
+    _, err = run(["dedupe", "-a", "-i", files["in.paf"]],
+                 os.path.join(d, "importtime.paf"),
+                 {"PAFFY_TPU_NO_FAST": "1", "PYTHONPROFILEIMPORTTIME": "1"})
+    rows = [ln.split(":", 1)[1].split("|") for ln in err.splitlines()
+            if ln.startswith("import time:")][1:]     # after the header
+    mods = [name.strip() for _, _, name in rows]
+    # a module's depth in the import tree is its name's indent, 2 a level
+    top = sorted(((int(cum), name.strip()) for _, cum, name in rows
+                  if len(name) - len(name.lstrip()) <= 3), reverse=True)
+    log("the Python lane's dedupe, largest imports of depth 0 and 1 "
+        "(cumulative us): " + ", ".join(f"{n} {us}" for us, n in top[:10]))
+    if "paffy_tpu_torch.commands.simple" not in mods:
+        raise AssertionError("the Python lane's import times name no command "
+                             "module of the port")
+    torch_mods = [m for m in mods if m == "torch" or m.startswith("torch.")]
+    if torch_mods:
+        raise AssertionError(f"the Python lane's dedupe imported "
+                             f"{torch_mods[:5]}")
+    return digests, walls
+
+
 def k6_edge_cases(seed=SEED, scale=1.0):
     """K6's edge cases: {label: (groups, (gap_open, gap_extend, max_gap))},
     a group being (qs, qe, ts, te, score) int64 arrays in processing order
@@ -776,9 +944,9 @@ def sha256_file(path) -> str:
     return h.hexdigest()
 
 
-def expect_equal(what, a, b):
+def expect_equal(what, a, b, detail=""):
     if a != b:
-        raise AssertionError(f"{what}: {a!r} != {b!r}")
+        raise AssertionError(f"{what}: {a!r} != {b!r}\n{detail}".rstrip())
     log(f"ok: {what}")
 
 
@@ -982,7 +1150,6 @@ def device_busy(trace_path, kernel):
 
 def run(torch) -> dict:
     import argparse
-    import shutil
     from paffy_tpu_torch import devconf, kernels, native, phases
     from paffy_tpu_torch.cli import faffy_main, paffy_main
     from paffy_tpu_torch.commands import common
@@ -1010,6 +1177,9 @@ def run(torch) -> dict:
         f"{[p.name for p in kernels.sources()]} in "
         f"{time.perf_counter() - t0:.1f} s:")
     log(kernels.build_log().rstrip())
+    t0 = time.perf_counter()
+    fast = native.build_fast()
+    log(f"g++ {fast.name} (the fast lane) in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     native.get_lib()
     log(f"g++ {native.library_path().name} in {time.perf_counter() - t0:.1f} s")
@@ -1328,6 +1498,44 @@ def run(torch) -> dict:
         for pin, sec in host_walls.items():
             log(f"host {pin}: {sec:.4f} s wall")
         log(f"host commands: {sum(host_walls.values()):.4f} s wall in all")
+
+        log("== fast lane")
+        expect_equal("the fast lane's link", native.build_fast(), fast)
+        expect_equal("the fast lane is newer than its sources",
+                     native.fast_is_fresh(), True)
+        fd = os.path.join(d, "fast")
+        os.makedirs(fd)
+        digests, fast_walls = fast_lane_phase(fd, {
+            "in.paf": paf, "chain.paf": cpaf,
+            "twins.paf": os.path.join(hd, "twins.paf"),
+            "up.paf": os.path.join(hd, "up.paf"),
+            "pipe_tile.paf": os.path.join(d, "pipe_tile.paf")})
+        for pin, digest in digests.items():
+            expect_equal(f"SHA-256 of the fast lane's {pin} is the pinned one",
+                         digest, PINS[pin])
+        for key, secs in fast_walls.items():
+            log(f"{key}: median {statistics.median(secs)} s from process "
+                f"start to exit (host time), runs {secs}")
+        log("fast lane walls: " + json.dumps(
+            {"gpu": gpu, "host_seconds": fast_walls}))
+        # the dispatcher's Python lane (python3 -S, site-packages put back
+        # by bin/paffy-torch-py) runs the device commands on the card
+        for pin, argv in (("view -s", ["view", "-s", "-i", paf, fa]),
+                          ("chain", ["chain", "-i", cpaf])):
+            out = os.path.join(fd, "device.out")
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [os.path.join(REPO, "bin", "paffy-torch"), *argv, "-o", out],
+                capture_output=True, timeout=600,
+                env={k: v for k, v in os.environ.items()
+                     if not k.startswith("PAFFY_TPU_")})
+            wall = time.perf_counter() - t0
+            expect_equal(f"bin/paffy-torch {pin} exit code", r.returncode, 0,
+                         r.stderr[-2000:].decode(errors="replace"))
+            expect_pin(f"bin/paffy-torch {pin}", out, pin)
+            log(f"bin/paffy-torch {pin}: {wall} s from process start to "
+                f"exit")
+        shutil.rmtree(fd)
         shutil.rmtree(hd)
 
         log("== profile")

@@ -106,10 +106,12 @@ def _run(m, rest) -> int:
     semantics of the reference's death (commands/common.GlibcWriter:
     errAbort flushes the sub-block tail, assert or SIGSEGV loses it)."""
     from paffy_tpu_torch.commands import common
+    from paffy_tpu_torch.utils.logging import stop_profilers
     try:
         rc = m(rest)
     except BaseException as e:
         common.end_writers(error=e)
+        stop_profilers()
         raise
     common.end_writers()
     return rc

@@ -21,15 +21,13 @@ from dataclasses import replace
 
 import numpy as np
 
-from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch import phases
 from paffy_tpu_torch.commands.common import (base_parser, open_output,
                                              read_table, start, stream_tables,
                                              write_table)
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.core.fasta import read_fasta
-from paffy_tpu_torch.ops.chain import paf_chain_order
 from paffy_tpu_torch.ops.coverage import CoverageMap, run_length_rows
-from paffy_tpu_torch.ops.tile import assign_tile_levels, tile_sort_order
 from paffy_tpu_torch.ops.transforms import invert, query_walk_violation
 from paffy_tpu_torch.utils.logging import log_info
 
@@ -47,6 +45,10 @@ def chain_main(argv) -> int:
     log_info("Maximum gap length : %d", args.maxGapLength)
     log_info("Chain gap open : %d", args.chainGapOpen)
     log_info("Chain gap extend : %d", args.chainGapExtend)
+    # the device modules load torch: to_bed, a host command, never imports
+    # them
+    from paffy_tpu_torch import devconf
+    from paffy_tpu_torch.ops.chain import paf_chain_order
     devconf.device()        # no device: raise before reading any input
     # raw cigars, as the reference's read_pafs(parse_cigar=0)
     # (impl/paf_chain.c:128): paf_check then skips the span checks
@@ -66,6 +68,8 @@ def tile_main(argv) -> int:
                     "Tiles the records in the PAF file along the query sequence")
     args = p.parse_args(argv)
     timer = start(args, "Paffy tile")
+    from paffy_tpu_torch import devconf
+    from paffy_tpu_torch.ops.tile import assign_tile_levels, tile_sort_order
     devconf.device()        # no device: raise before reading any input
     with phases.timed("parse"):
         t = read_table(args)

@@ -29,14 +29,13 @@ import sys
 
 import numpy as np
 
-from paffy_tpu_torch import devconf, native, phases
+from paffy_tpu_torch import native, phases
 from paffy_tpu_torch.commands.common import (base_parser,
                                              close_output_binary,
                                              open_output_binary, start,
                                              stream_tables, stream_transform,
                                              write_check_prefix)
 from paffy_tpu_torch.core import pafio
-from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
 from paffy_tpu_torch.ops.tailtrim import trim_unreliable_tails
 from paffy_tpu_torch.ops.transforms import (invert, remove_mismatches,
                                             shatter_violation, stats_calc,
@@ -63,6 +62,10 @@ def add_mismatches_main(argv) -> int:
         timer.done()
         return 0
 
+    # the device modules load torch: the host commands of this module never
+    # import them
+    from paffy_tpu_torch import devconf
+    from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
     devconf.device()        # no device: raise before reading any input
     with phases.timed("fasta"):
         pool = SequencePool.from_fasta_files(args.fasta_files)

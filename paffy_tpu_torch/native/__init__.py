@@ -1,5 +1,6 @@
 """ctypes bindings of the port's native C++ host library (counterpart of
-paffy_tpu/native/__init__.py, for the entry points the port calls).
+paffy_tpu/native/__init__.py, for the entry points the port calls), and the
+build of the port's native fast lane.
 
 ``paffy_io.cpp`` here is the port's own copy of paffy_tpu's.  On first use
 it is compiled by ``g++`` into ``paffy_tpu_torch/_build/`` (git-ignored)
@@ -7,11 +8,17 @@ under a name that carries a hash of the source, the flags and the CPU's
 features, so an edited source or another CPU rebuilds, as ``kernels`` does
 for the CUDA sources.  A failed build raises: the port has no second, numpy
 path for any of these passes.
+
+The same first use also builds ``paffy_fast`` (``build_fast``): the
+executable of ``paffy_fast.cpp`` and ``paffy_io.cpp`` that ``bin/paffy-torch``
+runs for the seven host-only commands, so the first call of such a command
+runs the Python lane and later calls run the binary.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import platform
@@ -22,8 +29,12 @@ from pathlib import Path
 import numpy as np
 
 _SRC = Path(__file__).resolve().parent / "paffy_io.cpp"
+_FAST_SRC = _SRC.with_name("paffy_fast.cpp")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
+FAST_FLAGS = ("-O3", "-march=native", "-std=c++17", "-pthread")
+# the fixed name bin/paffy-torch tests and execs: a link to fast_path()
+FAST_LINK = BUILD_DIR / "paffy_fast"
 
 _lock = threading.Lock()
 _lib = None
@@ -55,32 +66,79 @@ def _cpu_features() -> bytes:
     return platform.machine().encode()
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
+def _hashed(stem: str, suffix: str, flags, sources) -> Path:
+    h = hashlib.sha256(" ".join(flags).encode())
     h.update(_cpu_features())
-    h.update(_SRC.read_bytes())
-    return BUILD_DIR / f"libpaffy_io_{h.hexdigest()[:16]}.so"
+    for src in sources:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}{suffix}"
 
 
-def _build() -> Path:
-    out = library_path()
+def library_path() -> Path:
+    return _hashed("libpaffy_io", ".so", GXX_FLAGS, (_SRC,))
+
+
+def fast_path() -> Path:
+    return _hashed("paffy_fast", "", FAST_FLAGS, (_FAST_SRC, _SRC))
+
+
+def _compile(out: Path, flags, sources) -> Path:
+    """``g++ flags sources -o out``, unless ``out`` exists.  Processes that
+    build at once take turns on a lock file and each writes its own
+    temporary name, so none loads or replaces a half-written file."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = ["g++", *GXX_FLAGS, str(_SRC), "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
-                              timeout=300)
-    except OSError as e:
-        raise RuntimeError(f"g++ not found ({e}); the host library of "
-                           f"paffy_tpu_torch cannot be built") from e
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
+    with open(BUILD_DIR / ".build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():                  # built while this one waited
+            return out
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = ["g++", *flags, *map(str, sources), "-o", str(tmp)]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=300)
+        except OSError as e:
+            raise RuntimeError(f"g++ not found ({e}); the host code of "
+                               f"paffy_tpu_torch cannot be built") from e
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"g++ failed with exit code {proc.returncode}:"
+                               f"\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)
     return out
+
+
+def _build() -> Path:
+    return _compile(library_path(), GXX_FLAGS, (_SRC,))
+
+
+def build_fast() -> Path:
+    """Build the native fast lane if its sources, flags or CPU changed, and
+    point ``FAST_LINK`` at it; returns the binary's path.  A failed build
+    raises.  The binary's time is made newer than both sources, which is
+    what ``bin/paffy-torch`` checks before it execs the link."""
+    out = _compile(fast_path(), FAST_FLAGS, (_FAST_SRC, _SRC))
+    if not (FAST_LINK.is_symlink() and os.readlink(FAST_LINK) == out.name):
+        tmp = FAST_LINK.with_name(f"{FAST_LINK.name}.{os.getpid()}.tmp")
+        tmp.unlink(missing_ok=True)
+        tmp.symlink_to(out.name)
+        os.replace(tmp, FAST_LINK)
+    # sh's -nt compares whole seconds: a binary kept from before a source
+    # was touched, or built in the second of a source's last write, is
+    # moved past it
+    newest = int(max(_SRC.stat().st_mtime, _FAST_SRC.stat().st_mtime))
+    if int(out.stat().st_mtime) <= newest:
+        os.utime(out, (newest + 1, newest + 1))
+    return out
+
+
+def fast_is_fresh() -> bool:
+    """Whether ``bin/paffy-torch`` execs the fast lane: its own ``sh`` test
+    that ``FAST_LINK`` is executable and newer than both sources."""
+    test = '[ -x "$0" ] && [ "$0" -nt "$1" ] && [ "$0" -nt "$2" ]'
+    return subprocess.run(["sh", "-c", test, str(FAST_LINK), str(_FAST_SRC),
+                           str(_SRC)]).returncode == 0
 
 
 # (name, restype, argtypes) of every entry point bound here
@@ -164,7 +222,8 @@ _SIGNATURES = (
 
 
 def get_lib():
-    """The loaded library, built on first use."""
+    """The loaded library, built on first use together with the fast lane
+    (``build_fast``)."""
     global _lib
     with _lock:
         if _lib is None:
@@ -173,6 +232,7 @@ def get_lib():
                 fn = getattr(lib, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
+            build_fast()
             _lib = lib
         return _lib
 

@@ -16,8 +16,6 @@ from __future__ import annotations
 import time
 from contextlib import contextmanager
 
-import torch
-
 SECONDS: dict[str, float] = {}
 
 
@@ -26,9 +24,13 @@ def reset() -> None:
 
 
 @contextmanager
-def timed(name: str, device: torch.device | None = None):
+def timed(name: str, device=None):
+    """Adds the wall time of the ``with`` body to ``SECONDS[name]``; with a
+    CUDA ``device`` (a ``torch.device``), after a synchronize.  torch is
+    imported only then, so that a host command never loads it."""
     t0 = time.perf_counter()
     yield
     if device is not None and device.type == "cuda":
+        import torch
         torch.cuda.synchronize(device)
     SECONDS[name] = SECONDS.get(name, 0.0) + time.perf_counter() - t0

@@ -76,6 +76,17 @@ def _start_profiler():
     return prof
 
 
+_running_profilers: list = []
+
+
+def stop_profilers() -> None:
+    """Stop the profiler of a command that failed, without a trace: torch
+    ends a process whose profiler still runs with a segmentation fault,
+    where the command's own exit code belongs."""
+    while _running_profilers:
+        _running_profilers.pop().stop()
+
+
 class CommandTimer:
     """The reference's '<tool> is done!, N seconds have elapsed' line, and
     the command's profiler run under PAFFY_TPU_PROFILE."""
@@ -85,9 +96,12 @@ class CommandTimer:
         self.start = time.time()
         self._trace_dir = os.environ.get(PROFILE_ENV)
         self._prof = _start_profiler() if self._trace_dir else None
+        if self._prof is not None:
+            _running_profilers.append(self._prof)
 
     def done(self) -> None:
         if self._prof is not None:
+            _running_profilers.remove(self._prof)
             self._prof.stop()
             os.makedirs(self._trace_dir, exist_ok=True)
             stem = "_".join(self.name.lower().split())

@@ -29,6 +29,7 @@ from paffy_tpu_torch import kernels, native
 from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops import chain, chain_device
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 import chip_smoke
@@ -319,7 +320,7 @@ def test_chain_launcher_without_device_exits_before_reading(tmp_path):
     # names the device, not the input file it never opened
     env = {k: v for k, v in os.environ.items() if k != "PAFFY_TPU_PLATFORM"}
     r = subprocess.run(
-        [sys.executable, str(REPO / "bin" / "paffy-torch"), "chain", "-i",
+        [sys.executable, str(REPO / "bin" / "paffy-torch-py"), "chain", "-i",
          str(tmp_path / "never-read.paf")], cwd=tmp_path,
         env=dict(env, CUDA_VISIBLE_DEVICES=""), capture_output=True,
         text=True, timeout=300)

@@ -36,6 +36,7 @@ from paffy_tpu_torch.cli import faffy_main as port_faffy
 from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.commands import common
 from paffy_tpu_torch.utils import logging as port_logging
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 import chip_smoke

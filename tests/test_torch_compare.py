@@ -21,6 +21,7 @@ from paffy_tpu_torch import kernels
 from paffy_tpu_torch.ops import compare
 from paffy_tpu_torch.ops import mismatch as port_mm
 from paffy_tpu_torch.ops import mismatch_device as port_md
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))

@@ -23,6 +23,7 @@ from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops import mismatch as port_mm
 from paffy_tpu_torch.ops import mismatch_device, runs
 from paffy_tpu_torch.ops.compare import PIECE_COLS as P
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 IUPAC = b"ACGTNMKRYVBHDWS"

@@ -15,6 +15,7 @@ from paffy_tpu_torch import kernels
 from paffy_tpu_torch.ops import mismatch as port_mm
 from paffy_tpu_torch.ops.mismatch_device import (build_ext_pool,
                                                  build_ext_pool_plain)
+from ref_native import paffy_tpu_lib  # noqa: F401
 
 IUPAC = b"ACGTNMKRYVBHDWSX"
 

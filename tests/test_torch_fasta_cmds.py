@@ -26,6 +26,7 @@ from paffy_tpu import native as ref_native
 from paffy_tpu.cli import faffy_main as ref_faffy
 from paffy_tpu_torch.cli import faffy_main as port_faffy
 from paffy_tpu_torch.core.fasta import read_fasta
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 from test_torch_commands import SMALL, both, check, run_one
 

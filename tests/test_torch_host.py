@@ -35,6 +35,7 @@ from paffy_tpu_torch.cli import paffy_main as port_main  # noqa: E402
 from paffy_tpu_torch.core import pafio  # noqa: E402
 from paffy_tpu_torch.ops import mismatch as port_mm  # noqa: E402
 from paffy_tpu_torch.ops import segments, transforms  # noqa: E402
+from ref_native import paffy_tpu_lib, ref_lib  # noqa: E402,F401
 from synthdata import make_workload  # noqa: E402
 
 import chip_smoke  # noqa: E402
@@ -43,6 +44,17 @@ import chip_smoke  # noqa: E402
 @pytest.fixture(autouse=True)
 def cpu_platform(monkeypatch):
     monkeypatch.setenv("PAFFY_TPU_PLATFORM", "cpu")
+
+
+def test_ref_lib_loads_after_a_failed_build(monkeypatch):
+    # paffy_tpu's sticky flag, as a process whose build lost a race to
+    # another's leaves it: get_lib gives up, ref_lib clears it and loads
+    monkeypatch.setattr(ref_native, "_failed", True)
+    monkeypatch.setattr(ref_native, "_lib", None)
+    assert ref_native.get_lib() is None
+    lib = ref_lib()
+    assert lib is not None and not ref_native._failed
+    assert ref_native.get_lib() is lib
 
 
 def workload_text(seed):

@@ -1,7 +1,10 @@
-"""paffy_tpu_torch stands alone: an AST scan of every file of the port (and
-of chip_smoke.py, bin/paffy-torch and bin/faffy-torch) finds no import of
-JAX or of paffy_tpu, in any body, and no string that runs a paffy_tpu
-module in a subprocess; and a run of commands of the port (device and host
+"""paffy_tpu_torch stands alone: an AST scan of every Python file of the
+port (and of chip_smoke.py, bin/paffy-torch-py and bin/faffy-torch) finds no
+import of JAX or of paffy_tpu, in any body, and no string that runs a
+paffy_tpu module in a subprocess or names a path into paffy_tpu/native/; a
+scan of the code (comments left out) of the port's other files, the
+dispatcher bin/paffy-torch and the fast lane's C++, finds no path into
+paffy_tpu's package or to its launchers; and a run of commands of the port (device and host
 commands of paffy, and faffy's) in a fresh interpreter ends with neither
 ``jax`` nor any ``paffy_tpu`` module loaded."""
 
@@ -15,15 +18,28 @@ import sys
 import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
+# the port's files in other languages than Python, with their comments
+TEXT_COMMENTS = {
+    REPO / "bin" / "paffy-torch": re.compile(r"#[^\n]*"),
+    REPO / "paffy_tpu_torch" / "native" / "paffy_fast.cpp":
+        re.compile(r"//[^\n]*|/\*.*?\*/", re.S)}
 PORT_FILES = sorted((REPO / "paffy_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py", REPO / "bin" / "paffy-torch",
-    REPO / "bin" / "faffy-torch"]
+    REPO / "bin" / "paffy-torch-py", REPO / "bin" / "faffy-torch",
+    REPO / "paffy_tpu_torch" / "native" / "paffy_fast.cpp"]
 
 # a command string that runs paffy_tpu: python -c "from paffy_tpu...",
-# python -m paffy_tpu..., or one of its launchers as a program path
+# python -m paffy_tpu..., one of its launchers as a program path, or
+# anything in paffy_tpu/native/ (its library and its fast lane)
 _RUNS_PAFFY_TPU = re.compile(
     r"(?:\bimport\s+|\bfrom\s+|-m\s+)paffy_tpu\b(?!_torch)"
-    r"|^(?:\S*/)?bin/(?:paffy|faffy|paffy-py)(?:\s|$)")
+    r"|^(?:\S*/)?bin/(?:paffy|faffy|paffy-py)(?:\s|$)"
+    r"|\bpaffy_tpu/native\b")
+# in code of another language: a path into paffy_tpu's package, or to one of
+# its launchers (bin/paffy, bin/paffy-py, bin/faffy; not the port's
+# bin/paffy-torch, bin/paffy-torch-py or bin/faffy-torch)
+_PAFFY_TPU_PATH = re.compile(
+    r"\bpaffy_tpu/|\bbin/(?:paffy|paffy-py|faffy)(?![\w-])")
 _PAFFY_TPU_MODULE = re.compile(r"paffy_tpu(?:\.\w+)*")
 
 
@@ -96,8 +112,30 @@ def _violations(source: str) -> list[str]:
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
 def test_port_file_reaches_no_jax(path):
-    bad = _violations(path.read_text())
-    assert not bad, f"{path.name} imports or runs {bad}"
+    if path in TEXT_COMMENTS:
+        bad = _text_violations(path.read_text(), TEXT_COMMENTS[path])
+    else:
+        bad = _violations(path.read_text())
+    assert not bad, f"{path.name} imports, runs or names {bad}"
+
+
+def _text_violations(text: str, comments: re.Pattern) -> list[str]:
+    return _PAFFY_TPU_PATH.findall(comments.sub("", text))
+
+
+@pytest.mark.parametrize("text,sees", [
+    ('exec python3 -S "$root/bin/paffy-py" "$@"\n', True),
+    ('fast="$root/paffy_tpu/native/paffy_fast"\n', True),
+    ('std::string launcher = repo + "/bin/paffy";\n', True),
+    ('exec python3 -S "$root/bin/paffy-torch-py" "$@"\n', False),
+    ('fast="$root/paffy_tpu_torch/_build/paffy_fast"\n', False),
+    ('# a copy of paffy_tpu/native/paffy_fast.cpp; see bin/paffy\n', False),
+    ('// a copy of paffy_tpu/native/paffy_fast.cpp\nint x;\n', False),
+], ids=["sh-launcher", "sh-native", "cpp-launcher", "sh-port-launcher",
+        "sh-port-build", "sh-comment", "cpp-comment"])
+def test_the_text_scan_sees_paths_into_paffy_tpu(text, sees):
+    comments = re.compile(r"#[^\n]*|//[^\n]*")
+    assert bool(_text_violations(text, comments)) == sees
 
 
 @pytest.mark.parametrize("source", [
@@ -108,8 +146,9 @@ def test_port_file_reaches_no_jax(path):
     'subprocess.run([sys.executable, "-m", "paffy_tpu.cli", "view"])\n',
     'subprocess.run(["python", "-m paffy_tpu.cli"])\n',
     'subprocess.run([os.path.join(REPO, "bin/paffy"), "view"])\n',
+    'FAST = REPO / "paffy_tpu/native/paffy_fast"\n',
 ], ids=["import-in-body", "import-as", "jax", "command-string", "dash-m-arg",
-        "dash-m-string", "launcher"])
+        "dash-m-string", "launcher", "native-path"])
 def test_the_scan_sees_paffy_tpu_and_jax(source):
     assert _violations(source)
 
@@ -200,7 +239,7 @@ def test_port_launcher_runs_without_paffy_tpu(tmp_path):
     env = dict(os.environ, PAFFY_TPU_PLATFORM="cpu",
                PYTHONVERBOSE="1")
     r = subprocess.run(
-        [sys.executable, str(REPO / "bin" / "paffy-torch"), "view", "-i",
+        [sys.executable, str(REPO / "bin" / "paffy-torch-py"), "view", "-i",
          str(tmp_path / "in.paf"), "-s", "-t", str(tmp_path / "s.fa")],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]

@@ -25,6 +25,7 @@ import pytest
 
 from paffy_tpu.core import pafio
 from paffy_tpu.parallel.runner import run_pipeline
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 REPO = pathlib.Path(__file__).resolve().parent.parent

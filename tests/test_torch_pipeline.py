@@ -18,6 +18,7 @@ from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops.mismatch import SequencePool
 from paffy_tpu_torch.parallel import runner
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 from test_torch_host import SMALL, smoke_files
 

@@ -32,6 +32,7 @@ from paffy_tpu_torch.ops.chain_device import chain_groups_device
 from paffy_tpu_torch.ops.mismatch_device import build_ext_pool
 from paffy_tpu_torch.ops.segments import build_m_column_batch
 from paffy_tpu_torch.parallel import pipeline, runner
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 import chip_smoke

@@ -24,6 +24,7 @@ from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops import tile, tile_device
 from paffy_tpu_torch.ops.coverage import EMPTY_TILE_LEVEL, SATURATION
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 import chip_smoke

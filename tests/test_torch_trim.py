@@ -16,6 +16,7 @@ from paffy_tpu.ops.tailtrim import trim_unreliable_tails as ref_trim
 from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops.tailtrim import trim_unreliable_tails
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 from test_torch_host import assert_tables_equal
 

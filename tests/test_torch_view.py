@@ -12,6 +12,7 @@ import torch
 from paffy_tpu.cli import paffy_main as ref_main
 from paffy_tpu_torch import devconf
 from paffy_tpu_torch.cli import paffy_main as port_main
+from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
 
