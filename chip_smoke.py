@@ -39,7 +39,8 @@ Phases (any failure exits non-zero and prints no result line):
               batch (commands.common.BATCH_BYTES) cut so that in.paf spans
               MIN_BATCHES batches or more: the same pins, the same kernels
               launched.
-6. runs    -- K4 (count and fill) at full size and on its edge cases
+6. runs    -- K4 (the count, and the fill of the =/X cigar at its final
+              slots) at full size, in in.paf's cigar, and on its edge cases
               (k4_edge_cases) against its plain versions on the card and
               the C passes native.encode_runs_per_mop and
               native.encode_runs_fill_cigar.
@@ -128,7 +129,11 @@ Phases (any failure exits non-zero and prints no result line):
               K6_SWEEP_THREADS.  A command's peak device memory is counted
               above the tensors this script already held.  K7's ``ms`` is the (1,1) mesh's one launch
               over all pieces; ``ms_8_slots_in_a_row`` is the time of the
-              (4,2) mesh's 8 launches, 20 times in a row, per 8.
+              (4,2) mesh's 8 launches, 20 times in a row, per 8.  K4's
+              count and fill are printed beside the threaded C passes
+              they replace (native.encode_runs_per_mop and
+              encode_runs_fill_cigar on up to 8 host threads, host wall,
+              median of 5): ``c_pass_ms`` in their records.
 
 Integer and byte outputs are compared exactly.  The line before the last
 is the kernels' JSON record; the last line is
@@ -206,8 +211,10 @@ PINS = {
 K1_EDGE_LABELS = ("every residue, + strand", "every residue, - strand",
                   "both ends of ext")
 # the K4 edge cases, see k4_edge_cases
-K4_EDGE_LABELS = K1_EDGE_LABELS[:2] + ("placed flips, + strand",
-                                       "placed flips, - strand")
+K4_EDGE_LABELS = K1_EDGE_LABELS[:2] + (
+    "placed flips, + strand", "placed flips, - strand",
+    "long runs, + strand", "long runs, - strand",
+    "adjacent, empty and all-mismatch ops", "no M ops")
 # the tile input, see tile_input
 TILE_COPIES = 3
 TILE_SHIFT = 250_000
@@ -447,9 +454,72 @@ def k1_edge_cases(seed=SEED):
     return cases
 
 
+def k4_runs(seed, groups):
+    """M runs over one ACGT pool, from ``groups`` of (target residue mod
+    16, reverse, [(n, kind), ...]): a group's runs follow one another
+    with no gap in the target and in the query walk, as the M ops of
+    "5M5M" do; kind is "copy" (the query is the target's copy), "all
+    mismatch" (every column differs), "random" (independent bases) or a
+    tuple of columns of the run where the copy flips.  Returns dict(pool,
+    lens, qpos0, tpos0, rev)."""
+    rng = np.random.default_rng(seed)
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    other = np.arange(256, dtype=np.uint8)     # a base that differs
+    other[acgt] = np.roll(acgt, -1)
+    comp = np.arange(256, dtype=np.uint8)
+    comp[acgt] = acgt[::-1]
+    sizes = [sum(n for n, _ in runs) for _, _, runs in groups]
+    stride = 16 * (-(-(max(sizes) + 32) // 16))
+    pool = acgt[rng.integers(0, 4, 2 * stride * len(groups))].copy()
+    lens, qpos0, tpos0, rev = [], [], [], []
+    for g, ((t_res, reverse, group), size) in enumerate(zip(groups, sizes)):
+        t0 = stride * g + t_res
+        q0 = stride * (len(groups) + g) + (7 * g + 3) % 16
+        tgt = pool[t0: t0 + size]
+        qry = tgt.copy()
+        c = 0
+        for n, kind in group:
+            seg = slice(c, c + n)
+            if kind == "all mismatch":
+                qry[seg] = other[tgt[seg]]
+            elif kind == "random":
+                qry[seg] = acgt[rng.integers(0, 4, n)]
+            elif kind != "copy":
+                at = c + np.asarray(kind, dtype=np.int64)
+                qry[at] = other[qry[at]]
+            lens.append(n)
+            tpos0.append(t0 + c)
+            # a reverse run walks down from its first column's byte
+            qpos0.append(q0 + size - 1 - c if reverse else q0 + c)
+            rev.append(reverse)
+            c += n
+        pool[q0: q0 + size] = comp[qry][::-1] if reverse else qry
+    return dict(pool=pool, lens=np.array(lens, dtype=np.int64),
+                qpos0=np.array(qpos0, dtype=np.int64),
+                tpos0=np.array(tpos0, dtype=np.int64),
+                rev=np.array(rev, dtype=bool))
+
+
+def k4_paf(c, name="s"):
+    """PAF text of one record per M run of a K4 edge case whose pool is
+    one sequence ``name`` (k4_runs' cases): the run, then 2 inserted and
+    1 deleted bases (cigar nM2I1D), on the run's strand."""
+    size = len(c["pool"])
+    lines = []
+    for n, q, t, r in zip(c["lens"], c["qpos0"], c["tpos0"], c["rev"]):
+        q0 = q + 1 - (n + 2) if r else q    # a reverse walk starts at qend-1
+        lines.append(f"{name}\t{size}\t{q0}\t{q0 + n + 2}\t{'-+'[not r]}\t"
+                     f"{name}\t{size}\t{t}\t{t + n + 1}\t{n}\t{n + 3}\t60"
+                     f"\tcg:Z:{n}M2I1D")
+    return "\n".join(lines) + "\n"
+
+
 def k4_edge_cases(seed=SEED, residues=range(16)):
     """K4's edge cases as M runs over small unguarded pools:
-    {label: dict(pool, lens, qpos0, tpos0, rev)}.
+    {label: dict(pool, lens, qpos0, tpos0, rev[, ops, op_lens])}; where
+    ops and op_lens are given they are the cigar (op codes of
+    core.model) whose M ops are the runs, in order, else the cigar is
+    the runs alone.
 
     * every residue: k1_edge_cases' runs (1 to 9000 columns, every pair of
       target and query residues mod 16) over its random pool, where about a
@@ -460,6 +530,16 @@ def k4_edge_cases(seed=SEED, residues=range(16)):
       complement on the - strand), with one mismatching column at d in
       {-1, 0, +1} (a run per d) from every window edge and cut: the columns
       512 w - (target start mod 16) of the run, w >= 1.
+    * long runs: runs of identical bases over 4, 10 and 18 pieces of 4096
+      columns (the last two crossing the 8-piece groups a warp takes, the
+      18 pieces one =/X run), flips on a piece's first column and inside
+      it, a run whose every column mismatches over 3 pieces, and short
+      runs between them.
+    * adjacent, empty and all-mismatch ops: "5M5M" on both strands (one
+      state across the two ops, which stay two runs), a 0-length M op
+      between two adjacent ones, adjacent all-mismatch ops, and
+      one-column ops, in a cigar with I, D, = and X ops between them.
+    * no M ops: a cigar of I, D, = and X only.
     """
     cases = {k: {f: v for f, v in c.items() if f not in ("rec", "n_records")}
              for k, c in k1_edge_cases(seed).items() if k in K4_EDGE_LABELS}
@@ -472,7 +552,7 @@ def k4_edge_cases(seed=SEED, residues=range(16)):
     comp_lut = np.arange(256, dtype=np.uint8)
     for a, b in comp.items():
         comp_lut[a] = b
-    for label, reverse in zip(K4_EDGE_LABELS[2:], (False, True)):
+    for label, reverse in zip(K4_EDGE_LABELS[2:4], (False, True)):
         k = 3 * len(t_res)
         stride = 16 * (-(-(n_cols + 32) // 16))
         pool = np.frombuffer(b"ACGT", dtype=np.uint8)[
@@ -496,6 +576,35 @@ def k4_edge_cases(seed=SEED, residues=range(16)):
                 qpos0[j] = q0
         cases[label] = dict(pool=pool, lens=lens, qpos0=qpos0, tpos0=tpos0,
                             rev=np.full(k, reverse))
+    P = 8 * 512    # the host's cut (ops/compare.py PIECE_COLS)
+    for label, reverse in zip(K4_EDGE_LABELS[4:6], (False, True)):
+        cases[label] = k4_runs(seed + 2, [
+            (0, reverse, [(3 * P + 100, "copy")]),
+            (3, reverse, [(5, "random")]),
+            # the op's piece k starts at column k P - 5
+            (5, reverse, [(9 * P + 7, (5 * P - 5, 5 * P + 3))]),
+            (15, reverse, [(2 * P + 1, "all mismatch")]),
+            (1, reverse, [(1, "copy")]),
+            (9, reverse, [(17 * P, "copy")]),
+            (2, reverse, [(40, "random")])])
+    groups = [(0, False, [(5, "copy"), (5, "copy")]),
+              (7, True, [(5, "copy"), (5, "copy")]),
+              (3, False, [(6, "copy"), (0, "copy"), (6, "copy")]),
+              (11, True, [(20, "all mismatch"), (P + 3, "all mismatch")]),
+              (1, False, [(1, "copy"), (1, "all mismatch"), (1, "copy")])]
+    c = k4_runs(seed + 3, groups)
+    ops, op_lens = [3, 4], [2, 1]        # =, X
+    for g, (_, _, group) in enumerate(groups):
+        ops += [0] * len(group) + [1 + g % 2]   # the group's M ops, I or D
+        op_lens += [n for n, _ in group] + [g + 1]
+    cases[K4_EDGE_LABELS[6]] = dict(c, ops=np.array(ops, dtype=np.uint8),
+                                    op_lens=np.array(op_lens, dtype=np.int64))
+    empty = np.zeros(0, dtype=np.int64)
+    cases[K4_EDGE_LABELS[7]] = dict(
+        pool=np.frombuffer(b"ACGT" * 8, dtype=np.uint8).copy(), lens=empty,
+        qpos0=empty, tpos0=empty, rev=np.zeros(0, dtype=bool),
+        ops=np.array([1, 2, 3, 4], dtype=np.uint8),
+        op_lens=np.array([3, 2, 4, 1], dtype=np.int64))
     return cases
 
 
@@ -936,6 +1045,19 @@ def cuda_ms(torch, fn, reps, warm=2, batch=1):
     return statistics.median(times)
 
 
+def host_ms(fn, reps, warm=1):
+    """Milliseconds of one call of the host function ``fn``: the median of
+    ``reps`` wall times after ``warm`` calls."""
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
 def sha256_file(path) -> str:
     h = hashlib.sha256()
     with open(path, "rb") as fh:
@@ -994,13 +1116,19 @@ def run_world(argv, n_proc, timeout, log_dir):
 # ---------------------------------------------------------------------- main
 
 def k4_check(torch, devconf, native, runs, mismatch_device, pool, lens,
-             qpos0, tpos0, rev):
-    """K4 on one set of M runs over a guarded or unguarded host ``pool``:
-    count and fill against their plain versions on the card and against
-    the C passes.  Returns (ext, table, counts, first_out, n_runs, max
-    abs error); raises on any difference."""
+             qpos0, tpos0, rev, ops=None, op_lens=None):
+    """K4 on one set of M runs over a guarded or unguarded host ``pool``,
+    in the cigar ``ops`` / ``op_lens`` whose M ops are those runs in order
+    (default: the runs alone): the count against its plain version on the
+    card and the C count pass, and the fill of the rebuilt cigar (its other
+    ops placed as encode_mismatches places them, every other slot set to a
+    value no run has) against its plain version on the card and the C
+    passes' cigar.  Returns (ext, table, first_dest, new_ops, new_lens,
+    n_runs, max abs error); raises on any difference."""
     dev = devconf.device()
     lens = np.asarray(lens, dtype=np.int64)
+    if ops is None:
+        ops, op_lens = np.zeros(len(lens), dtype=np.uint8), lens
     col_off = np.cumsum(lens) - lens
     table_np, piece_off = runs.build_run_table(lens, qpos0, tpos0, rev,
                                                col_off, len(pool))
@@ -1013,32 +1141,39 @@ def k4_check(torch, devconf, native, runs, mismatch_device, pool, lens,
     if not torch.equal(counts, counts_plain):
         raise AssertionError("K4 count != its plain version")
     per_piece = devconf.to_host_i64(counts)
-    cs = np.concatenate([[0], np.cumsum(per_piece)])
-    runs_per_mop = cs[piece_off[1:]] - cs[piece_off[:-1]]
-    if not np.array_equal(runs_per_mop, native.encode_runs_per_mop(
+    per_mop = runs.runs_per_mop(per_piece, piece_off)
+    if not np.array_equal(per_mop, native.encode_runs_per_mop(
             pool, lens, qpos0, tpos0, rev)):
         raise AssertionError("K4 count != native.encode_runs_per_mop")
-    n_runs = int(cs[-1])
-    first_out = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-    starts, states = runs.run_fill(ext, table, first_out, n_runs)
-    starts_p, states_p = runs.run_fill_plain(ext, table, first_out, n_runs)
-    if n_runs:
-        err = max(err, int((starts - starts_p).abs().max()),
-                  int((states.int() - states_p.int()).abs().max()))
-    if not (torch.equal(starts, starts_p) and torch.equal(states, states_p)):
+    out_off, m_out_off, slot, keep_ops, keep_lens = (
+        native.encode_rebuild_slots(ops, op_lens, per_mop))
+    total = int(out_off[-1])
+    dest = devconf.upload(
+        runs.piece_first_dest(per_piece, piece_off, m_out_off), dev)
+    got, plain = [], []
+    for fill, out in ((runs.run_fill_cigar, got),
+                      (runs.run_fill_cigar_plain, plain)):
+        new_ops, new_lens = runs.placed_cigar(total, slot, keep_ops,
+                                              keep_lens, dev)
+        runs_slot = torch.ones(total, dtype=torch.bool, device=dev)
+        runs_slot[devconf.upload(slot, dev)] = False
+        new_ops[runs_slot] = 255
+        new_lens[runs_slot] = -1
+        fill(ext, table, dest, new_ops, new_lens)
+        out += [new_ops, new_lens]
+    if total:
+        err = max(err, int((got[0].int() - plain[0].int()).abs().max()),
+                  int((got[1] - plain[1]).abs().max()))
+    if not (torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1])):
         raise AssertionError("K4 fill != its plain version")
-    new_ops = np.empty(n_runs, dtype=np.uint8)
-    new_lens = np.empty(n_runs, dtype=np.int64)
-    native.encode_runs_fill_cigar(pool, lens, qpos0, tpos0, rev,
-                                  np.cumsum(runs_per_mop) - runs_per_mop,
-                                  new_ops, new_lens)
-    st = devconf.download(starts)
-    if not (np.array_equal(np.where(devconf.download(states) != 0, 3, 4),
-                           new_ops)
-            and np.array_equal(np.diff(st, append=np.int64(lens.sum())),
-                               new_lens)):
+    _, _, want_ops, want_lens = native.encode_rebuild_offsets(
+        ops, op_lens, per_mop, total)
+    native.encode_runs_fill_cigar(pool, lens, qpos0, tpos0, rev, m_out_off,
+                                  want_ops, want_lens)
+    if not (np.array_equal(devconf.download(got[0]), want_ops)
+            and np.array_equal(devconf.download(got[1]), want_lens)):
         raise AssertionError("K4 fill != native.encode_runs_fill_cigar")
-    return ext, table, counts, first_out, n_runs, err
+    return ext, table, dest, got[0], got[1], int(per_mop.sum()), err
 
 
 def k5_check(torch, devconf, native, tile_device, host, cap, tile,
@@ -1308,7 +1443,8 @@ def run(torch) -> dict:
         log("== add_mismatches")
         am = os.path.join(d, "am.paf")
         drive("add_mismatches", ["add_mismatches", "-i", paf, fa], am)
-        launched("add_mismatches", ("build_ext", "run_counts", "run_fill"))
+        launched("add_mismatches", ("build_ext", "run_counts",
+                                     "run_fill_cigar"))
         drive("add_mismatches -a", ["add_mismatches", "-a", "-i", am],
               os.path.join(d, "am_a.paf"))
         with open(am, "rb") as fh:
@@ -1336,21 +1472,24 @@ def run(torch) -> dict:
             common.BATCH_BYTES = saved
         launched("view -s in batches", ("piece_compare", "build_ext"))
         launched("add_mismatches in batches", ("build_ext", "run_counts",
-                                               "run_fill"))
+                                               "run_fill_cigar"))
 
         log("== runs")
         k = b.n_mops
-        _, table4, counts4, first_out4, n_runs, k4_err = k4_check(
+        _, table4, dest4, ops4, lens4, n_runs, k4_err = k4_check(
             torch, devconf, native, runs, mismatch_device, pool.host_pool,
-            b.lens[:k], b.qpos0[:k], b.tpos0[:k], b.rev[:k])
+            b.lens[:k], b.qpos0[:k], b.tpos0[:k], b.rev[:k], t.ops, t.lens)
+        k4_c = (pool.host_pool, b.lens[:k], b.qpos0[:k], b.tpos0[:k],
+                b.rev[:k])
         n_pieces4 = int(table4.shape[1])
         log(f"ok: K4 count and fill == plain on the card == C passes at full "
             f"size: {n_runs} runs over {n_cols} columns in {n_pieces4} "
-            f"pieces")
+            f"pieces, a cigar of {ops4.numel()} ops")
         for label, c in k4_edge_cases().items():
             *_, n_edge, err = k4_check(
                 torch, devconf, native, runs, mismatch_device, c["pool"],
-                c["lens"], c["qpos0"], c["tpos0"], c["rev"])
+                c["lens"], c["qpos0"], c["tpos0"], c["rev"], c.get("ops"),
+                c.get("op_lens"))
             k4_err = max(k4_err, err)
             log(f"ok: K4 count and fill == plain == C passes on its edge case "
                 f"{label} ({len(c['lens'])} runs, {n_edge} =/X runs)")
@@ -1446,7 +1585,7 @@ def run(torch) -> dict:
             drive(f"pipeline {cmd}", [cmd, "-i", src, *extra], out)
             src = out
         launched("pipeline add_mismatches", ("build_ext", "run_counts",
-                                             "run_fill"))
+                                             "run_fill_cigar"))
         launched("pipeline chain", ("chain_dp",), once=("chain_dp",))
         launched("pipeline tile", ("tile_sweep",), once=("tile_sweep",))
         # K5 on the pipeline's tile input, the chained chain_input
@@ -1474,8 +1613,8 @@ def run(torch) -> dict:
         with open(rp, "wb") as fh:
             fh.write(pafio.serialize_paf_bytes(piped))
         expect_pin("run_pipeline", rp)
-        launched("run_pipeline", ("build_ext", "run_counts", "run_fill",
-                                  "chain_dp", "tile_sweep"),
+        launched("run_pipeline", ("build_ext", "run_counts",
+                                  "run_fill_cigar", "chain_dp", "tile_sweep"),
                  once=("chain_dp", "tile_sweep"))
         log(f"launches during run_pipeline: {launches['run_pipeline']}")
         log(f"run_pipeline: {len(tp)} records in "
@@ -1641,8 +1780,8 @@ def run(torch) -> dict:
         with open(rp_out, "wb") as fh:
             fh.write(pafio.serialize_paf_bytes(piped))
         expect_pin(tag, rp_out, pin="run_pipeline")
-        launched(tag, ("build_ext", "run_counts", "run_fill", "chain_dp",
-                       "tile_sweep"))
+        launched(tag, ("build_ext", "run_counts", "run_fill_cigar",
+                       "chain_dp", "tile_sweep"))
         log(f"launches during {tag}: {launches[tag]}")
         del staged, piped, tp
 
@@ -1669,7 +1808,7 @@ def run(torch) -> dict:
             return runs.run_counts(ext, table4)
 
         def k4f():
-            return runs.run_fill(ext, table4, first_out4, n_runs)
+            return runs.run_fill_cigar(ext, table4, dest4, ops4, lens4)
 
         def k5(args, tl=tile_device.TILE):
             return lambda: tile_device.tile_sweep(*args, SATURATION, tl)
@@ -1694,14 +1833,15 @@ def run(torch) -> dict:
         def k7_slots():
             for tab_d, o in slot_args:
                 group_stats.group_stats(ext, tab_d, *o)
+        ops4_plain, lens4_plain = ops4.clone(), lens4.clone()
         timed = {
             "piece_compare": (k1, lambda: compare.piece_match_counts_plain(
                 ext, table, len(t))),
             "build_ext": (k2, lambda: mismatch_device.build_ext_pool_plain(
                 raw)),
             "run_counts": (k4c, lambda: runs.run_counts_plain(ext, table4)),
-            "run_fill": (k4f, lambda: runs.run_fill_plain(
-                ext, table4, first_out4, n_runs)),
+            "run_fill_cigar": (k4f, lambda: runs.run_fill_cigar_plain(
+                ext, table4, dest4, ops4_plain, lens4_plain)),
             "tile_sweep": (k5(k5_args), lambda: tile_device.tile_sweep_plain(
                 *k5_args)),
             "chain_dp": (k6(k6_full), lambda: chain_device.
@@ -1714,8 +1854,8 @@ def run(torch) -> dict:
         # and 32 bytes of table per piece and writes 8 bytes per record; K2
         # reads the pool (L) and writes ext (2L); K4 count reads 2 bytes
         # per column and 40 of table per piece and writes 4 per piece; the
-        # fill reads the same plus 8 bytes of first index per piece and
-        # writes 9 bytes per run; K5 reads 16 bytes per interval (istart,
+        # fill reads the same plus 8 bytes of first slot per piece and
+        # writes 9 bytes per run (op and length); K5 reads 16 bytes per interval (istart,
         # iend) and 8 each of run_off, arena_off and the order per record,
         # and writes 8 of level per record (its counts are the kernel's own
         # and never need to leave the chip); K6 reads 9 int64 per record
@@ -1727,8 +1867,8 @@ def run(torch) -> dict:
             "build_ext": 3 * raw.numel(),
             "run_counts": (2 * n_cols + table4.numel() * 8
                            + 4 * n_pieces4),
-            "run_fill": (2 * n_cols + table4.numel() * 8 + 8 * n_pieces4
-                         + 9 * n_runs),
+            "run_fill_cigar": (2 * n_cols + table4.numel() * 8
+                               + 8 * n_pieces4 + 9 * n_runs),
             "tile_sweep": 16 * n_iv + 32 * len(tt),
             "chain_dp": 88 * k6_records,
             "group_stats": 2 * n_cols + tab7.nbytes + 16 * b1.rec_pad + 16,
@@ -1756,6 +1896,23 @@ def run(torch) -> dict:
                 f"integer operations ({by_ops:.4f} ms at "
                 f"{INT32_OPS_PER_S:.4g}/s); bound {bound_ms[name]:.4f} ms "
                 f"by {bound_by[name]}")
+        # the bar K4 must clear: the port's threaded C passes at full size
+        c_threads = min(os.cpu_count() or 1, 8)
+        per_mop4 = native.encode_runs_per_mop(*k4_c, n_threads=c_threads)
+        _, m_out_off4, c_ops4, c_lens4 = native.encode_rebuild_offsets(
+            t.ops, t.lens, per_mop4, ops4.numel())
+        c_pass = {
+            "run_counts": ("native.encode_runs_per_mop", host_ms(
+                lambda: native.encode_runs_per_mop(
+                    *k4_c, n_threads=c_threads), reps=5)),
+            "run_fill_cigar": ("native.encode_runs_fill_cigar", host_ms(
+                lambda: native.encode_runs_fill_cigar(
+                    *k4_c, m_out_off4, c_ops4, c_lens4,
+                    n_threads=c_threads), reps=5))}
+        for name, (what, c_ms) in c_pass.items():
+            log(f"{what} on {c_threads} threads at full size: {c_ms:.4f} ms "
+                f"(host wall, median of 5), against {name}'s "
+                f"{ms[name]:.4f} ms one call at a time")
         k7_slots_ms = cuda_ms(torch, k7_slots, reps=7, batch=20)
         log(f"group_stats over the (4,2) mesh's {len(slot_args)} slots: "
             f"{k7_slots_ms:.4f} ms for the {len(slot_args)} launches, 20 in "
@@ -1803,27 +1960,33 @@ def run(torch) -> dict:
         log(gpu)
 
     errs = {"piece_compare": k1_err, "build_ext": k2_err,
-            "run_counts": k4_err, "run_fill": k4_err, "tile_sweep": k5_err,
+            "run_counts": k4_err, "run_fill_cigar": k4_err,
+            "tile_sweep": k5_err,
             "chain_dp": k6_err, "group_stats": k7_err}
     sources = {"piece_compare": "piece_compare.cu", "build_ext": "ext_pool.cu",
-               "run_counts": "encode_runs.cu", "run_fill": "encode_runs.cu",
+               "run_counts": "encode_runs.cu",
+               "run_fill_cigar": "encode_runs.cu",
                "tile_sweep": "tile_sweep.cu", "chain_dp": "chain_dp.cu",
                "group_stats": "group_stats.cu"}
     replaces = {"piece_compare": "paffy_tpu/ops/pallas_compare.py:161",
                 "build_ext": "paffy_tpu/ops/mismatch_device.py:47",
                 "run_counts": "paffy_tpu/ops/tiled.py:302",
-                "run_fill": "paffy_tpu/ops/tiled.py:307",
+                "run_fill_cigar": "paffy_tpu/ops/tiled.py:307",
                 "tile_sweep": "paffy_tpu/ops/tile_device.py:23",
                 "chain_dp": "paffy_tpu/ops/chain_device.py:26",
                 "group_stats": "paffy_tpu/parallel/pipeline.py:126"}
     path_of = {"piece_compare": "view -s", "build_ext": "view -s",
-               "run_counts": "add_mismatches", "run_fill": "add_mismatches",
+               "run_counts": "add_mismatches",
+               "run_fill_cigar": "add_mismatches",
                "tile_sweep": "tile", "chain_dp": "chain",
                "group_stats": "column_counts_multichip 1x1"}
     # K6's plain version runs on the prefix only
     sweeps = {name: {k: v for k, v in sweep_ms.items() if k.startswith(name)}
               for name in ("tile_sweep", "chain_dp")}
-    extra = {"tile_sweep": {"sweep_ms": sweeps["tile_sweep"]},
+    extra = {name: {"c_pass": what, "c_pass_ms": c_ms,
+                    "c_pass_threads": c_threads}
+             for name, (what, c_ms) in c_pass.items()}
+    extra |= {"tile_sweep": {"sweep_ms": sweeps["tile_sweep"]},
              "chain_dp": {"plain_records": k6_plain_records,
                           "ms_at_plain_records": k6_prefix_ms,
                           "sweep_ms": sweeps["chain_dp"]},

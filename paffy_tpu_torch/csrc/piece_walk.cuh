@@ -1,6 +1,6 @@
 // The warp walk over a piece table of the extended pool, shared by K1
 // (piece_compare.cu, whose header describes the design) and K7
-// (group_stats.cu).  The table is int64 [4, n_pieces], rows qsrc, tsrc, n,
+// (group_stats.cu); its step loads (load_step) also by K4 (encode_runs.cu).  The table is int64 [4, n_pieces], rows qsrc, tsrc, n,
 // slot: n >= 1 columns whose query bytes are ext[qsrc, qsrc+n) and target
 // bytes ext[tsrc, tsrc+n).  A warp takes kPiecesPerWarp consecutive pieces
 // and walks their 512-byte target windows as one sequence of steps, 16
@@ -43,6 +43,55 @@ __constant__ uint32_t kFlagsBelow[17] = {
     flags_below(8),  flags_below(9),  flags_below(10), flags_below(11),
     flags_below(12), flags_below(13), flags_below(14), flags_below(15),
     flags_below(16)};
+
+// One step of a warp's walk: its piece (src, the lane holding the piece's
+// table entry; its first step and n), and this lane's aligned target word
+// tw with the two aligned query words qa, qb that cover the same columns
+// (realign by sh).  The piece's columns are this lane's bytes [lo, hi),
+// none when hi <= lo (nothing is loaded then); the lane's word starts off
+// bytes after the piece's first aligned target word, whose first byte
+// column is head.
+struct StepWords {
+  uint4 tw, qa, qb;
+  int src, first, n, head, off, lo, hi, sh;
+};
+
+// Issues the loads of step `step` of `steps`; every lane of the warp calls
+// it for the same step.  my_t, my_q, my_n, my_first: this lane's piece
+// (tsrc, qsrc, n, first step; lanes past the warp's pieces hold the step
+// count as their first step).  A step past the last loads nothing.
+__device__ __forceinline__ StepWords load_step(
+    const uint8_t* __restrict__ ext, int64_t ext_len, int64_t my_t,
+    int64_t my_q, int my_n, int my_first, int step, int steps) {
+  StepWords w;
+  const bool valid = step < steps;          // the same on every lane
+  // the step's piece is the last lane whose first step is not after it
+  // (first steps ascend along the lanes)
+  w.src = valid ? __popc(__ballot_sync(kFull, my_first <= step)) - 1 : 0;
+  const int64_t ts = __shfl_sync(kFull, my_t, w.src);
+  const int64_t qs = __shfl_sync(kFull, my_q, w.src);
+  w.n = __shfl_sync(kFull, my_n, w.src);
+  w.first = __shfl_sync(kFull, my_first, w.src);
+  w.head = static_cast<int>(ts & 15);
+  w.off = (step - w.first) * kWindow + 16 * static_cast<int>(threadIdx.x & 31);
+  w.lo = max(w.head - w.off, 0);
+  w.hi = valid ? min(w.head + w.n - w.off, 16) : 0;
+  const int64_t qbyte = qs - w.head;   // the query byte of the word's byte 0
+  w.sh = static_cast<int>(qbyte & 15);
+  const int64_t qword = (qbyte & ~int64_t{15}) + w.off;
+  w.tw = w.qa = w.qb = make_uint4(0u, 0u, 0u, 0u);
+  if (w.hi > w.lo) {
+    w.tw = __ldg(reinterpret_cast<const uint4*>(ext + (ts - w.head) + w.off));
+    if (static_cast<uint64_t>(qword) < static_cast<uint64_t>(ext_len)) {
+      w.qa = __ldg(reinterpret_cast<const uint4*>(ext + qword));
+    }
+    if (w.sh != 0 && static_cast<uint64_t>(qword + 16) <
+                         static_cast<uint64_t>(ext_len)) {
+      w.qb = __ldg(reinterpret_cast<const uint4*>(ext + qword + 16));
+    }
+  }
+  return w;
+}
 
 // Adds the warp's count of the slot to match[slot] (and with kStats its
 // columns to cols[slot]); returns the warp's count.
@@ -99,62 +148,34 @@ piece_walk_kernel(const uint8_t* __restrict__ ext, int64_t ext_len,
   }
   const int my_first = incl - my_windows;   // lanes >= cnt: the step count
   const int steps = __shfl_sync(kFull, incl, 31);
-  const int l16 = 16 * lane;
   int cur = __shfl_sync(kFull, my_rec, 0);
   unsigned count = 0;
   unsigned long long n_cols = 0;        // kStats: the slot's columns so far
   unsigned long long all_match = 0, all_cols = 0;   // kStats: the warp's
 #pragma unroll 1
   for (int s = 0; s < steps; s += kUnroll) {
-    uint4 tw[kUnroll], qa[kUnroll], qb[kUnroll];
-    int lo[kUnroll], hi[kUnroll], sh[kUnroll], rec[kUnroll];
+    StepWords w[kUnroll];
+    int rec[kUnroll];
     int piece_n[kUnroll];               // n at a piece's first step, else 0
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const int step = s + u;
-      const bool valid = step < steps;          // the same on every lane
-      // the step's piece is the last lane whose first step is not after it
-      // (first steps ascend along the lanes)
-      const int src = valid
-          ? __popc(__ballot_sync(kFull, my_first <= step)) - 1 : 0;
-      const int64_t ts = __shfl_sync(kFull, my_t, src);
-      const int64_t qs = __shfl_sync(kFull, my_q, src);
-      const int n = __shfl_sync(kFull, my_n, src);
-      const int first = __shfl_sync(kFull, my_first, src);
-      rec[u] = __shfl_sync(kFull, my_rec, src);
-      piece_n[u] = (valid && step == first) ? n : 0;
-      const int head = static_cast<int>(ts & 15);
-      // this lane's word starts off bytes after the piece's first aligned
-      // target word and holds the piece's columns at its bytes [lo, hi)
-      const int off = (step - first) * kWindow + l16;
-      lo[u] = max(head - off, 0);
-      hi[u] = valid ? min(head + n - off, 16) : 0;
-      const int64_t qbyte = qs - head;   // the query byte of the word's byte 0
-      sh[u] = static_cast<int>(qbyte & 15);
-      const int64_t qword = (qbyte & ~int64_t{15}) + off;
-      tw[u] = qa[u] = qb[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (hi[u] > lo[u]) {
-        tw[u] = __ldg(reinterpret_cast<const uint4*>(ext + (ts - head) + off));
-        if (static_cast<uint64_t>(qword) < static_cast<uint64_t>(ext_len)) {
-          qa[u] = __ldg(reinterpret_cast<const uint4*>(ext + qword));
-        }
-        if (sh[u] != 0 && static_cast<uint64_t>(qword + 16) <
-                              static_cast<uint64_t>(ext_len)) {
-          qb[u] = __ldg(reinterpret_cast<const uint4*>(ext + qword + 16));
-        }
-      }
+      w[u] = load_step(ext, ext_len, my_t, my_q, my_n, my_first, step,
+                       steps);
+      rec[u] = __shfl_sync(kFull, my_rec, w[u].src);
+      piece_n[u] = (step < steps && step == w[u].first) ? w[u].n : 0;
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       unsigned c = 0;
-      if (hi[u] > lo[u]) {
-        const uint4 q = realign(qa[u], qb[u], sh[u]);
-        const uint4 t = tw[u];
+      if (w[u].hi > w[u].lo) {
+        const uint4 q = realign(w[u].qa, w[u].qb, w[u].sh);
+        const uint4 t = w[u].tw;
         const uint32_t flags = zero_byte_flags(q.x ^ t.x) |
                                (zero_byte_flags(q.y ^ t.y) >> 1) |
                                (zero_byte_flags(q.z ^ t.z) >> 2) |
                                (zero_byte_flags(q.w ^ t.w) >> 3);
-        c = __popc(flags & below[hi[u]] & ~below[lo[u]]);
+        c = __popc(flags & below[w[u].hi] & ~below[w[u].lo]);
       }
       if (s + u < steps) {
         if (rec[u] != cur) {   // the same on every lane

@@ -24,9 +24,10 @@ raises on non-zero):
     int paffy_run_counts(int dev, const u8* ext, i64 ext_len,
                          const i64* table, i64 n_pieces, i32* counts,
                          cudaStream_t s)
-    int paffy_run_fill(int dev, const u8* ext, i64 ext_len, const i64* table,
-                       i64 n_pieces, const i64* first_out, i64* starts,
-                       u8* states, cudaStream_t s)
+    int paffy_run_fill_cigar(int dev, const u8* ext, i64 ext_len,
+                             const i64* table, i64 n_pieces,
+                             const i64* first_dest, u8* new_ops,
+                             i64* new_lens, cudaStream_t s)
     int paffy_tile_sweep(int dev, i64 n_tiles, const i64* tile_ids,
                          const i64* pair_off, const i64* pair_rec,
                          const i64* arena_off, const i64* run_off,
@@ -67,7 +68,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"piece_compare": 0, "build_ext": 0, "run_counts": 0,
-            "run_fill": 0, "tile_sweep": 0, "chain_dp": 0, "group_stats": 0}
+            "run_fill_cigar": 0, "tile_sweep": 0, "chain_dp": 0,
+            "group_stats": 0}
 
 _lock = threading.Lock()
 _lib = None
@@ -164,8 +166,8 @@ def load() -> ctypes.CDLL:
             lib.paffy_build_ext.argtypes = [dev, vp, i64, vp, vp]
             lib.paffy_piece_counts.argtypes = [dev, vp, i64, vp, i64, vp, vp]
             lib.paffy_run_counts.argtypes = [dev, vp, i64, vp, i64, vp, vp]
-            lib.paffy_run_fill.argtypes = [dev, vp, i64, vp, i64, vp, vp, vp,
-                                           vp]
+            lib.paffy_run_fill_cigar.argtypes = [dev, vp, i64, vp, i64, vp,
+                                                 vp, vp, vp]
             lib.paffy_tile_sweep.argtypes = [dev, i64, *[vp] * 9, i64, i64,
                                              i64, vp, vp]
             lib.paffy_chain_dp.argtypes = [dev, i64, *[vp] * 10, *[i64] * 6,
@@ -173,7 +175,7 @@ def load() -> ctypes.CDLL:
             lib.paffy_group_stats.argtypes = [dev, vp, i64, vp, i64, vp, vp,
                                               vp, vp]
             for fn in (lib.paffy_build_ext, lib.paffy_piece_counts,
-                       lib.paffy_run_counts, lib.paffy_run_fill,
+                       lib.paffy_run_counts, lib.paffy_run_fill_cigar,
                        lib.paffy_tile_sweep, lib.paffy_chain_dp,
                        lib.paffy_group_stats):
                 fn.restype = ctypes.c_int

@@ -183,7 +183,7 @@ _SIGNATURES = (
                                  _U8P, _I64P, _I64P, _I64P, _CP, _I64P, _I64P,
                                  _I64P, _CP, _LL]),
     ("encode_rebuild_offsets", None, [_LL, _U8P, _I64P, _I64P, _I64P, _I64P,
-                                      _U8P, _I64P]),
+                                      _U8P, _I64P, _I64P]),
     ("match_intervals", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P, _I64P,
                               _I64P]),
     ("query_walk_violation", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P,
@@ -680,8 +680,28 @@ def encode_rebuild_offsets(ops, lens, runs_per_mop, total_out):
     lib.encode_rebuild_offsets(len(ops), _p_u8(ops), _p_i64(_i64(lens)),
                                _p_i64(_i64(runs_per_mop)), _p_i64(out_off),
                                _p_i64(m_out_off), _p_u8(new_ops),
-                               _p_i64(new_lens))
+                               _p_i64(new_lens), None)
     return out_off, m_out_off, new_ops, new_lens
+
+
+def encode_rebuild_slots(ops, lens, runs_per_mop):
+    """The same rebuild with the non-M ops packed instead of placed:
+    (out_off_per_op, m_out_off, slot, keep_ops, keep_lens), where non-M op
+    i (in op order) goes to output slot ``slot[i]``.  O(ops): nothing here
+    is sized to the output."""
+    lib = get_lib()
+    ops = _u8(ops)
+    n_keep = len(ops) - len(runs_per_mop)
+    out_off = np.empty(len(ops) + 1, dtype=np.int64)
+    m_out_off = np.empty(len(runs_per_mop), dtype=np.int64)
+    slot = np.empty(n_keep, dtype=np.int64)
+    keep_ops = np.empty(n_keep, dtype=np.uint8)
+    keep_lens = np.empty(n_keep, dtype=np.int64)
+    lib.encode_rebuild_offsets(len(ops), _p_u8(ops), _p_i64(_i64(lens)),
+                               _p_i64(_i64(runs_per_mop)), _p_i64(out_off),
+                               _p_i64(m_out_off), _p_u8(keep_ops),
+                               _p_i64(keep_lens), _p_i64(slot))
+    return out_off, m_out_off, slot, keep_ops, keep_lens
 
 
 def match_intervals(off, ops, lens, qstart):

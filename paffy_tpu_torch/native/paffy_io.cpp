@@ -1214,18 +1214,22 @@ void fasta_fill(const char* buf, long long len,
 // Mismatch-encode CSR rebuild, offsets half: one walk over the original
 // ops computing each op's output offset (M ops contribute their =/X run
 // count, taken from runs_per_mop in M-op order; everything else writes
-// through op+len at its slot).  Emits out_off_per_op (n_ops+1), the M ops'
-// output offsets in M-op order (for encode_runs_fill_cigar), and the
-// pass-through ops/lens — replacing a ~6-pass numpy chain (contrib
-// scatter, cumsum, boolean masks, two fancy scatters) over the 24M-op
-// encode output.
+// through op+len).  Emits out_off_per_op (n_ops+1), the M ops' output
+// offsets in M-op order (for encode_runs_fill_cigar), and the pass-through
+// ops/lens — replacing a ~6-pass numpy chain (contrib scatter, cumsum,
+// boolean masks, two fancy scatters) over the 24M-op encode output.  With
+// keep_slot null the pass-through ops/lens go to their slots of the whole
+// output (new_ops/new_lens sized to it); with keep_slot they are packed in
+// op order, each one's slot in keep_slot (n_ops - n_m_ops entries each),
+// so that a device route moves only these and places them on the card.
 void encode_rebuild_offsets(long long n_ops, const unsigned char* ops,
                             const long long* lens,
                             const long long* runs_per_mop,  // [n_m_ops]
                             long long* out_off_per_op,      // [n_ops + 1]
                             long long* m_out_off,           // [n_m_ops]
-                            unsigned char* new_ops, long long* new_lens) {
-    long long pos = 0, m = 0;
+                            unsigned char* new_ops, long long* new_lens,
+                            long long* keep_slot) {
+    long long pos = 0, m = 0, kept = 0;
     out_off_per_op[0] = 0;
     for (long long k = 0; k < n_ops; ++k) {
         if (ops[k] == 0) {  // M: replaced by its =/X runs
@@ -1233,8 +1237,13 @@ void encode_rebuild_offsets(long long n_ops, const unsigned char* ops,
             pos += runs_per_mop[m];
             ++m;
         } else {
-            new_ops[pos] = ops[k];
-            new_lens[pos] = lens[k];
+            long long at = pos;
+            if (keep_slot) {
+                keep_slot[kept] = pos;
+                at = kept++;
+            }
+            new_ops[at] = ops[k];
+            new_lens[at] = lens[k];
             ++pos;
         }
         out_off_per_op[k + 1] = pos;

@@ -22,10 +22,12 @@ import torch
 
 from paffy_tpu_torch import devconf, native, phases
 from paffy_tpu_torch.core.fasta import fasta_pool_from_bytes, pack_sequences
-from paffy_tpu_torch.core.model import SEQ_MATCH, SEQ_MISMATCH, PafTable
+from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.ops.compare import build_piece_table, piece_match_counts
 from paffy_tpu_torch.ops.mismatch_device import build_ext_pool
-from paffy_tpu_torch.ops.runs import build_run_table, run_counts, run_fill
+from paffy_tpu_torch.ops.runs import (build_run_table, piece_first_dest,
+                                      placed_cigar, run_counts,
+                                      run_fill_cigar, runs_per_mop)
 from paffy_tpu_torch.ops.segments import (POOL_GUARD, POOL_W,
                                           build_m_column_batch)
 
@@ -177,8 +179,14 @@ def encode_mismatches(t: PafTable, pool: SequencePool) -> PafTable:
     """paf_encode_mismatches over a batch (impl/paf.c:739-784): every M op
     becomes its =/X runs, every other op (=/X ones included) stays in
     place; an M op of length 0 leaves nothing, as in paffy_tpu's fused
-    encoder.  The runs come from K4 on the pool's device; the CSR rebuild
-    around them is host code.  A batch without M ops comes back as it is.
+    encoder.  A batch without M ops comes back as it is.
+
+    The cigar is assembled on the pool's device, as paffy_tpu's C pass pair
+    assembles it on the host: K4 counts the runs of each piece; the host
+    reads the counts back and rebuilds the CSR offsets (O(ops), plus each
+    piece's first slot, O(pieces)); the non-M ops are uploaded and placed
+    at their slots, K4's fill writes every run's op and length at its own,
+    and the finished ops and lens come back in one download.
     """
     with phases.timed("batch"):
         b = build_m_column_batch(t, pool.offsets_for(t.qname, "query"),
@@ -194,30 +202,18 @@ def encode_mismatches(t: PafTable, pool: SequencePool) -> PafTable:
     with phases.timed("upload", pool.device):
         table = devconf.upload(table, pool.device)
     with phases.timed("K4 count"):
-        counts = run_counts(ext, table)
-        per_piece = devconf.to_host_i64(counts)
-    with phases.timed("rebuild"):
-        cs = np.zeros(len(per_piece) + 1, dtype=np.int64)
-        np.cumsum(per_piece, out=cs[1:])
-        runs_per_mop = cs[piece_off[1:]] - cs[piece_off[:-1]]
-        n_runs = int(cs[-1])
-        out_off_per_op, m_out_off, new_ops, new_lens = (
-            native.encode_rebuild_offsets(t.ops, t.lens, runs_per_mop,
-                                          n_runs + len(t.ops) - k))
+        per_piece = devconf.to_host_i64(run_counts(ext, table))
+    with phases.timed("rebuild", pool.device):
+        out_off_per_op, m_out_off, slot, keep_ops, keep_lens = (
+            native.encode_rebuild_slots(t.ops, t.lens,
+                                        runs_per_mop(per_piece, piece_off)))
+        dest = devconf.upload(
+            piece_first_dest(per_piece, piece_off, m_out_off), pool.device)
+        new_ops_d, new_lens_d = placed_cigar(int(out_off_per_op[-1]), slot,
+                                             keep_ops, keep_lens, pool.device)
     with phases.timed("K4 fill", pool.device):
-        first_out = torch.cumsum(counts, 0, dtype=torch.int64) - counts
-        starts_d, states_d = run_fill(ext, table, first_out, n_runs)
+        run_fill_cigar(ext, table, dest, new_ops_d, new_lens_d)
     with phases.timed("download"):
-        starts = devconf.download(starts_d)
-        states = devconf.download(states_d)
-    del starts_d, states_d
-    with phases.timed("cigar"):
-        # runs are in column order, so in M-op order: run r of M op j goes
-        # to m_out_off[j] + (r - the op's first run)
-        first_run = cs[piece_off[:-1]]
-        dest = np.repeat(m_out_off - first_run, runs_per_mop)
-        dest += np.arange(n_runs, dtype=np.int64)
-        new_ops[dest] = np.where(states != 0, np.uint8(SEQ_MATCH),
-                                 np.uint8(SEQ_MISMATCH))
-        new_lens[dest] = np.diff(starts, append=np.int64(b.n_cols))
+        new_ops = devconf.download(new_ops_d)
+        new_lens = devconf.download(new_lens_d)
     return t.with_cigars(new_ops, new_lens, out_off_per_op[t.off])

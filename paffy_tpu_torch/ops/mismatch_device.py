@@ -75,11 +75,10 @@ def build_ext_pool(pool: torch.Tensor) -> torch.Tensor:
 def column_runs_plain(ext: torch.Tensor, table: torch.Tensor):
     """Per-column run flags over the pieces of a K4 table (ops/runs.py;
     counterpart of paffy_tpu/ops/mismatch_device.py::_column_runs): for
-    every column, in column order, (piece, column index within the piece,
-    run start, match state).  A column starts a run when it is its M op's
-    first column or its state differs from the previous column's; a
-    piece's first column that is not its op's first compares with the
-    column before it, re-read from ext."""
+    every column, in column order, (piece, run start, match state).  A
+    column starts a run when it is its M op's first column or its state
+    differs from the previous column's; a piece's first column that is not
+    its op's first compares with the column before it, re-read from ext."""
     qsrc, tsrc, n, _, first = table.unbind(0)
     dev = ext.device
     total = int(n.sum())
@@ -91,4 +90,4 @@ def column_runs_plain(ext: torch.Tensor, table: torch.Tensor):
     # an op's first column reads no previous column (clamped, then masked)
     prev = ext[(q - 1).clamp_min(0)] == ext[(t - 1).clamp_min(0)]
     start = (eq != prev) | ((i == 0) & (first[piece] != 0))
-    return piece, i, start, eq
+    return piece, start, eq

@@ -196,7 +196,8 @@ def test_run_kernels_match_plain_and_c(cuda, lens):
     torch.cuda.synchronize()
     assert err == 0 and n_runs >= sum(1 for n in lens if n)
     assert kernels.LAUNCHES["run_counts"] == before["run_counts"] + 1
-    assert kernels.LAUNCHES["run_fill"] == before["run_fill"] + (n_runs > 0)
+    assert kernels.LAUNCHES["run_fill_cigar"] == (
+        before["run_fill_cigar"] + (n_runs > 0))
 
 
 @pytest.mark.parametrize("label", chip_smoke.K4_EDGE_LABELS)
@@ -204,8 +205,28 @@ def test_run_kernels_edge_cases(cuda, label):
     c = chip_smoke.k4_edge_cases()[label]
     *_, n_runs, err = chip_smoke.k4_check(
         torch, devconf, native, runs, mismatch_device, c["pool"], c["lens"],
-        c["qpos0"], c["tpos0"], c["rev"])
-    assert err == 0 and n_runs > len(c["lens"])
+        c["qpos0"], c["tpos0"], c["rev"], c.get("ops"), c.get("op_lens"))
+    assert err == 0 and n_runs >= np.count_nonzero(c["lens"])
+    if label in chip_smoke.K4_EDGE_LABELS[:4]:  # flips inside the runs
+        assert n_runs > len(c["lens"])
+
+
+def test_encode_mismatches_launches_each_k4_kernel_once(cuda, monkeypatch):
+    c = chip_smoke.k4_edge_cases()[chip_smoke.K4_EDGE_LABELS[5]]
+    tab = parse_paf_text(chip_smoke.k4_paf(c))
+    index = {"s": (0, len(c["pool"]))}
+    monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
+    before = dict(kernels.LAUNCHES)
+    gpu = port_mm.encode_mismatches(
+        tab, port_mm.SequencePool.from_arrays(c["pool"], index))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["run_counts"] == before["run_counts"] + 1
+    assert kernels.LAUNCHES["run_fill_cigar"] == before["run_fill_cigar"] + 1
+    monkeypatch.setenv("PAFFY_TPU_PLATFORM", "cpu")
+    cpu = port_mm.encode_mismatches(
+        tab, port_mm.SequencePool.from_arrays(c["pool"], index))
+    for name in ("ops", "lens", "off"):
+        np.testing.assert_array_equal(getattr(gpu, name), getattr(cpu, name))
 
 
 def tile_case(rng, n_seqs, n_records, seq_len, max_iv):
@@ -263,9 +284,17 @@ def test_run_and_tile_wrappers_refuse_bad_inputs(cuda):
         runs.run_counts(ext, table.to(torch.int32))
     with pytest.raises(ValueError):
         runs.run_counts(ext[8:40], table)
+    ops = torch.zeros(4, dtype=torch.uint8, device=cuda)
+    lens = torch.zeros(4, dtype=torch.int64, device=cuda)
+    dest = torch.zeros(1, dtype=torch.int64, device=cuda)
     with pytest.raises(ValueError):
-        runs.run_fill(ext, table, torch.zeros(1, dtype=torch.int32,
-                                              device=cuda), 1)
+        runs.run_fill_cigar(ext, table, dest.int(), ops, lens)
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, dest, ops, lens.cpu())
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, dest, ops, lens[::2])
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, dest, ops[::2], lens[::2])
     idx = torch.zeros(1, dtype=torch.int64, device=cuda)
     two = torch.zeros(2, dtype=torch.int64, device=cuda)
     arena = torch.zeros(8, dtype=torch.int16, device=cuda)

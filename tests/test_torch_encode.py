@@ -152,6 +152,21 @@ def test_encode_workload_matches_paffy_tpu(seed):
                   want.off)
 
 
+@pytest.mark.parametrize("label", chip_smoke.K4_EDGE_LABELS[4:6])
+def test_encode_long_runs_matches_paffy_tpu(label):
+    # runs over many pieces, crossing the warps' groups of 8 pieces
+    c = chip_smoke.k4_edge_cases()[label]
+    text = chip_smoke.k4_paf(c)
+    seqs = {"s": c["pool"].tobytes()}
+    ref, port = pools(seqs)
+    r, t = ref_pafio.parse_paf_text(text), pafio.parse_paf_text(text)
+    got = port_mm.encode_mismatches(t, port)
+    want = ref_mm.encode_mismatches(r, ref)
+    assert_cigars(got, want.ops, want.lens, want.off)
+    assert_cigars(got, *c_pass_pair(t, port))
+    assert got.lens.max() == 17 * P           # one =/X run over 18 pieces
+
+
 def test_encode_without_m_ops_returns_the_table():
     text = ("q\t9\t0\t4\t+\tt\t9\t0\t4\t4\t4\t60\tcg:Z:2=2X\n"
             "q\t9\t0\t5\t+\tt\t9\t0\t0\t0\t5\t60\tcg:Z:5I\n")
@@ -184,10 +199,34 @@ def test_k4_plain_matches_c_passes_on_edge_cases(label):
         keep = np.isin(c["tpos0"] % 16, (0, 1, 15)) & np.isin(
             c["qpos0"] % 16, (0, 14, 15))
         c = {k: (v[keep] if k != "pool" else v) for k, v in c.items()}
-    *_, n_runs, err = chip_smoke.k4_check(
+    *_, new_ops, new_lens, n_runs, err = chip_smoke.k4_check(
         torch, devconf, native, runs, mismatch_device, c["pool"], c["lens"],
-        c["qpos0"], c["tpos0"], c["rev"])
-    assert err == 0 and n_runs > len(c["lens"])
+        c["qpos0"], c["tpos0"], c["rev"], c.get("ops"), c.get("op_lens"))
+    assert err == 0 and n_runs >= np.count_nonzero(c["lens"])
+    if label in chip_smoke.K4_EDGE_LABELS[:4]:  # flips inside the runs
+        assert n_runs > len(c["lens"])
+    assert len(new_ops) == n_runs + len(c.get("ops", c["lens"])) - len(
+        c["lens"])
+
+
+def test_k4_edge_cases_hold_what_they_name():
+    cases = chip_smoke.k4_edge_cases(residues=(0,))
+    for label in chip_smoke.K4_EDGE_LABELS[4:6]:      # long runs
+        c = cases[label]
+        _, piece_off = runs.build_run_table(
+            c["lens"], c["qpos0"], c["tpos0"], c["rev"],
+            np.cumsum(c["lens"]) - c["lens"], len(c["pool"]))
+        per_mop = native.encode_runs_per_mop(c["pool"], c["lens"],
+                                             c["qpos0"], c["tpos0"], c["rev"])
+        pieces = np.diff(piece_off)
+        # one =/X run over 18 pieces, crossing the 8-piece groups of warps
+        assert pieces.max() == 18 and per_mop[pieces.argmax()] == 1
+        assert piece_off[pieces.argmax()] % 8 != 0
+        assert per_mop[pieces == 3].tolist() == [1]       # all mismatch
+    adj = cases[chip_smoke.K4_EDGE_LABELS[6]]
+    assert 0 in adj["lens"] and adj["rev"].any() and not adj["rev"].all()
+    assert set(adj["ops"].tolist()) == {0, 1, 2, 3, 4}
+    assert 0 not in cases[chip_smoke.K4_EDGE_LABELS[7]]["ops"]
 
 
 def test_run_table_rows():
@@ -206,17 +245,48 @@ def test_run_table_rows():
 def test_run_wrappers_on_cpu_run_plain_without_launching():
     from paffy_tpu_torch import kernels
     ext = torch.from_numpy(np.frombuffer(b"ACGT" * 8, dtype=np.uint8).copy())
+    # one 8-column M op, query ext[0:8] against target ext[16:24]: one =
     table = torch.tensor([[0], [16], [8], [0], [1]], dtype=torch.int64)
     before = dict(kernels.LAUNCHES)
     counts = runs.run_counts(ext, table)
-    starts, states = runs.run_fill(ext, table, torch.zeros(1,
-                                                           dtype=torch.int64),
-                                   int(counts[0]))
+    new_ops = torch.tensor([1, 0, 2], dtype=torch.uint8)      # I, slot, D
+    new_lens = torch.tensor([5, 0, 6], dtype=torch.int64)
+    dest = torch.ones(1, dtype=torch.int64)
+    runs.run_fill_cigar(ext, table, dest, new_ops, new_lens)
     assert kernels.LAUNCHES == before
-    assert counts.tolist() == [1] and starts.tolist() == [0]
-    assert states.tolist() == [1]
+    assert counts.tolist() == [1]
+    assert new_ops.tolist() == [1, 3, 2] and new_lens.tolist() == [5, 8, 6]
     with pytest.raises(ValueError):
         runs.run_counts(ext[:20], table)
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, dest.int(), new_ops, new_lens)
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, torch.ones(2, dtype=torch.int64),
+                            new_ops, new_lens)
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, dest, new_ops.long(), new_lens)
+    with pytest.raises(ValueError):
+        runs.run_fill_cigar(ext, table, dest, new_ops, new_lens[:2])
+
+
+def test_rebuild_slots_place_what_the_rebuild_writes_through():
+    ops = np.array([3, 0, 1, 0, 0, 2, 0, 4], dtype=np.uint8)
+    lens = np.array([2, 5, 3, 0, 7, 4, 1, 9], dtype=np.int64)
+    per_mop = np.array([2, 0, 3, 1], dtype=np.int64)
+    out_off, m_out_off, placed_ops, placed_lens = (
+        native.encode_rebuild_offsets(ops, lens, per_mop, 10))
+    got = native.encode_rebuild_slots(ops, lens, per_mop)
+    np.testing.assert_array_equal(got[0], out_off)
+    np.testing.assert_array_equal(got[1], m_out_off)
+    assert got[2].tolist() == [0, 3, 7, 9]
+    np.testing.assert_array_equal(got[3], placed_ops[got[2]])
+    np.testing.assert_array_equal(got[4], placed_lens[got[2]])
+    new_ops, new_lens = runs.placed_cigar(10, *got[2:], torch.device("cpu"))
+    assert new_ops[got[2]].tolist() == [3, 1, 2, 4]
+    assert new_lens[got[2]].tolist() == [2, 3, 4, 9]
+    dest = runs.piece_first_dest(np.array([2, 3, 1]), np.array([0, 1, 1, 2, 3]),
+                           m_out_off)
+    assert dest.tolist() == [1, 4, 8]
 
 
 # ------------------------------------------------------------ the command
