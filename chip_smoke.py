@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s``,
 ``add_mismatches``, ``tile``, ``chain`` and ``trim``, the fused
-``add_mismatches | chain | tile | trim`` pipeline, the (data, seq) mesh
+``add_mismatches | chain | tile | trim`` pipeline (also in worker threads
+over a many-contig genome), the (data, seq) mesh
 path and the multi-process runner, at chromosome scale through the port's
 CUDA kernels; every host-only paffy and faffy command at the same scale,
 in process and through the native fast lane (bin/paffy-torch); and
@@ -93,6 +94,20 @@ Phases (any failure exits non-zero and prints no result line):
               pinned, one Chrome trace written, holding device events of
               K6; the device's busy time (the union of its kernels, copies
               and sets) over the command's wall is printed.
+   genome  -- run_pipeline on a many-contig genome (build_genome: 24
+              contig pairs of uneven length, 2 x 135 Mbp, each query
+              contig aligned to its target as in the synthesis above,
+              shattered into its 216,913 gapless records, both files
+              pinned), with a pool made from the FASTA inside each run,
+              at PAFFY_TPU_PIPELINE_THREADS = GENOME_THREADS in turns
+              (1, 4, 4, 1): each output pinned to paffy_tpu's run_pipeline
+              on the CPU, K2 launched once and K4's count and fill, K6 and
+              K5 once per contig group; each run's wall, records/s and
+              phases (summed over the workers) printed.  Then once at 4
+              workers under PAFFY_TPU_PROFILE (the port's CommandTimer
+              hook): its busy share, and how many of K6's launches overlap
+              in time and on which streams, K6 on worker streams and not
+              on K2's (the caller's).
 10. mesh   -- column_counts_multichip on in.paf over a (1,1) mesh of the
               first card, then over 8 slots filled round robin from the
               cards present as (4,2), (8,1) and (2,4) (all cuda:0 on one
@@ -174,7 +189,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # chain_input (paffy_tpu's shatter of in.paf), of paffy_tpu's chain on it,
 # of its add_mismatches, chain, tile and trim one after another from it,
 # and of its run_pipeline on it; of host_phase's outputs through
-# paffy_tpu's commands; made by tests/test_torch_host.py --pins
+# paffy_tpu's commands; of the many-contig genome (build_genome) and of
+# paffy_tpu's run_pipeline on it; made by tests/test_torch_host.py --pins
 PINS = {
     "seqs.fa": "5e4d5d8787566cbba4677b110e206d3355fdabe151b45a21851ab56c9f6b9c80",
     "in.paf": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
@@ -205,8 +221,17 @@ PINS = {
     "faffy extract": "84326d84c32022d69743eec4d64f52ce13f98bc44342090cb0b56bc33ab59b51",
     "upconvert": "d8545c03b2fefd6a19a9b682bb9f8ee84a43bd67f91270c5a84f4695706b5b9c",
     "dechunk": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
+    "genome.fa": "fa7c4f43fbb8c3537bccca8b583e85e410613b4289216b7b5cb92cc724fbdaee",
+    "genome.paf": "a5b6398f6f4bc5b82a88ac31ee74f9507cb1daa257b9fd4c830812263672e05a",
+    "run_pipeline genome": "17523d674f25a24bf0cb425cb62ed65db436b39ae27414a682fd08ecae08d7e7",
 }
 
+# the many-contig genome, see build_genome: its contig count, the factor
+# between its longest and its shortest contig, and the worker counts of
+# its run_pipeline runs (PAFFY_TPU_PIPELINE_THREADS), in turns
+GENOME_CONTIGS = 24
+GENOME_SPREAD = 12
+GENOME_THREADS = (1, 4, 4, 1)
 # the K1 edge cases, see k1_edge_cases
 K1_EDGE_LABELS = ("every residue, + strand", "every residue, - strand",
                   "both ends of ext")
@@ -284,9 +309,11 @@ def log(msg: str) -> None:
 
 # ------------------------------------------------------------------ workload
 
-def synth_workload(rng, seq_len, n_records, m_columns):
+def synth_workload(rng, seq_len, n_records, m_columns, names=("q_chr",
+                                                              "t_chr")):
     """Alignment structure of the records: per-run (record, length, query
-    and target start relative to the sequences) and the PAF lines."""
+    and target start relative to the sequences) and the PAF lines, between
+    the query and target sequences ``names``."""
     runs = np.maximum(rng.lognormal(np.log(MEDIAN_RUN), 0.8,
                                     int(m_columns / MEDIAN_RUN * 1.2)), 1)
     runs = runs.astype(np.int64)
@@ -340,13 +367,13 @@ def synth_workload(rng, seq_len, n_records, m_columns):
     for r in range(n_records):
         cigar = "".join(tokens[bounds[r]: bounds[r + 1]].tolist())
         lines.append(
-            f"q_chr\t{seq_len}\t{qs[r]}\t{qs[r] + qspan[r]}\t"
-            f"{'-' if rev_rec[r] else '+'}\tt_chr\t{seq_len}\t{ts[r]}\t"
+            f"{names[0]}\t{seq_len}\t{qs[r]}\t{qs[r] + qspan[r]}\t"
+            f"{'-' if rev_rec[r] else '+'}\t{names[1]}\t{seq_len}\t{ts[r]}\t"
             f"{ts[r] + tspan[r]}\t{mcols[r]}\t{max(qspan[r], tspan[r])}\t60"
             f"\tAS:i:{2 * mcols[r]}\tcg:Z:{cigar}\n")
     return dict(runs=runs, run_rec=run_rec, rev=rev, qpos=qpos, tpos=tpos,
                 n_rev=int(rev_rec.sum()), n_ins=int(np.count_nonzero(ins)),
-                n_del=int(np.count_nonzero(dele)), lines=lines)
+                n_del=int(np.count_nonzero(dele)), lines=lines, names=names)
 
 
 def soft_mask(rng, seq, n_stretches, n_runs_of_n, max_n_run):
@@ -407,6 +434,67 @@ def build_files(d, native, seq_len=SEQ_LEN, n_records=N_RECORDS,
         f"{w['n_rev']} '-' records, {2 * seq_len} sequence bytes, lowercase share "
         f"t {t_lower:.3f} q {q_lower:.3f}, {time.perf_counter() - t0:.1f} s")
     return fa, paf, w
+
+
+def build_genome(d, native, n_contigs=GENOME_CONTIGS, seq_len=SEQ_LEN,
+                 n_records=N_RECORDS, m_columns=M_COLUMNS):
+    """Write a seeded genome pair as ``d``/genome.fa, ``n_contigs`` target
+    contigs (t_chr1..) then as many query contigs (q_chr1..), and the
+    gapless records of its alignment as ``d``/genome.paf.  Each genome
+    holds ``seq_len`` bases; contig i of both has the same length, the
+    lengths log-uniform over a factor of GENOME_SPREAD in a seeded order.
+    Query contig i aligns to target contig i through synth_workload, with
+    its share by length of ``n_records`` records (at least one) and of
+    ``m_columns`` M columns; each genome is soft-masked, with runs of N,
+    at build_files' density, and the query copied through the alignment
+    map as there.  The records are chain_input's for each contig (one per
+    M run), contig after contig.  Returns (fasta, paf, contig lengths,
+    [synth_workload's dict per contig])."""
+    rng = np.random.default_rng(SEED + 23)
+    t0 = time.perf_counter()
+    share = np.geomspace(1, GENOME_SPREAD, n_contigs)[
+        rng.permutation(n_contigs)]
+    lens = (seq_len * share / share.sum()).astype(np.int64)
+    total = int(lens.sum())
+    works = [synth_workload(rng, n, max(1, round(n_records * n / total)),
+                            int(m_columns * n / total),
+                            (f"q_chr{i + 1}", f"t_chr{i + 1}"))
+             for i, n in enumerate(lens.tolist())]
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    seqs = acgt[rng.integers(0, 4, 2 * total, dtype=np.uint8)]
+    tseq, qseq = seqs[:total], seqs[total:]            # views into seqs
+    scale = total / SEQ_LEN
+    max_n_run = min(50_000, total // 100)
+    t_lower = soft_mask(rng, tseq, int(30_000 * scale),
+                        max(int(30 * scale), 1), max_n_run)
+    # every contig's runs at once, offset to its place in the genomes
+    shift = np.repeat(np.cumsum(lens) - lens, [len(w["runs"]) for w in works])
+
+    def runs_of(key):
+        return np.concatenate([w[key] for w in works])
+    native.synth_query_pool(seqs, runs_of("runs"),
+                            runs_of("qpos") + shift + total,
+                            runs_of("tpos") + shift, runs_of("rev"),
+                            keep_per_mille=965, seed=SEED + 7)
+    q_lower = soft_mask(rng, qseq, int(20_000 * scale),
+                        max(int(20 * scale), 1), max_n_run)
+    fa, paf = os.path.join(d, "genome.fa"), os.path.join(d, "genome.paf")
+    with open(fa, "wb") as fh:
+        for seq, k in ((tseq, 1), (qseq, 0)):
+            for w, a, n in zip(works, np.cumsum(lens) - lens, lens):
+                write_fasta(fh, w["names"][k], seq[a: a + n])
+    with open(paf, "wb") as fh:
+        for w, n in zip(works, lens.tolist()):
+            fh.write(chain_input(w, seq_len=n))
+    n_runs = [len(w["runs"]) for w in works]
+    log(f"genome: {n_contigs} contigs of {int(lens.min())}-{int(lens.max())}"
+        f" bp, {sum(len(w['lines']) for w in works)} gapped records, "
+        f"{sum(int(w['runs'].sum()) for w in works)} M columns in "
+        f"{sum(n_runs)} gapless records ({min(n_runs)}-{max(n_runs)} a "
+        f"contig), {sum(w['n_rev'] for w in works)} '-' gapped records, "
+        f"lowercase share t {t_lower:.3f} q {q_lower:.3f}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return fa, paf, lens, works
 
 
 def k1_edge_cases(seed=SEED):
@@ -638,13 +726,14 @@ def chain_input(w, seq_len=SEQ_LEN) -> bytes:
     of in.paf: '-' records walk down the query, the run length in fields
     10-11, MAPQ 60, the parent's AS, s1:i:0 and cg:Z:<len>M."""
     runs, rev = w["runs"], w["rev"]
+    qname, tname = w["names"]
     qs = np.where(rev, w["qpos"] - runs + 1, w["qpos"])
     score = 2 * np.bincount(w["run_rec"], weights=runs).astype(np.int64)
     cols = zip(qs.tolist(), np.where(rev, "-", "+").tolist(),
                w["tpos"].tolist(), runs.tolist(),
                score[w["run_rec"]].tolist())
     return "".join(
-        f"q_chr\t{seq_len}\t{q}\t{q + n}\t{s}\tt_chr\t{seq_len}\t{t}\t"
+        f"{qname}\t{seq_len}\t{q}\t{q + n}\t{s}\t{tname}\t{seq_len}\t{t}\t"
         f"{t + n}\t{n}\t{n}\t60\tAS:i:{a}\ts1:i:0\tcg:Z:{n}M\n"
         for q, s, t, n, a in cols).encode()
 
@@ -1283,6 +1372,33 @@ def device_busy(trace_path, kernel):
     return busy / 1e6, by_cat, sum(mine), len(mine)
 
 
+def kernel_overlap(trace_path, kernel):
+    """(events, events that overlap another in time, most running at once,
+    distinct streams) of the device events of ``kernel`` in a Chrome trace
+    of torch.profiler; each event's stream is its "stream" argument."""
+    with open(trace_path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("cat") == "kernel" and "dur" in e
+                  and kernel in e.get("name", "")]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events)
+    overlapping = set()
+    for i, (a, b) in enumerate(spans):
+        for j in range(i + 1, len(spans)):
+            if spans[j][0] >= b:
+                break
+            overlapping |= {i, j}
+    # an end sorts before a start at the same time
+    at_once = most = 0
+    for _, step in sorted([(a, 1) for a, _ in spans]
+                          + [(b, -1) for _, b in spans]):
+        at_once += step
+        most = max(most, at_once)
+    streams = sorted({e.get("args", {}).get("stream", e.get("tid"))
+                      for e in events}, key=str)
+    return len(spans), len(overlapping), most, streams
+
+
 def run(torch) -> dict:
     import argparse
     from paffy_tpu_torch import devconf, kernels, native, phases
@@ -1295,6 +1411,7 @@ def run(torch) -> dict:
     from paffy_tpu_torch.ops.coverage import SATURATION
     from paffy_tpu_torch.ops.segments import build_m_column_batch
     from paffy_tpu_torch.parallel import pipeline, runner
+    from paffy_tpu_torch.utils.logging import CommandTimer
 
     os.environ.pop("PAFFY_TPU_PLATFORM", None)
     dev = devconf.device()
@@ -1709,6 +1826,96 @@ def run(torch) -> dict:
             f"ms in {k6_n} event(s); device time by kind (ms): "
             f"{ {k: round(v / 1e3, 4) for k, v in by_cat.items()} }")
 
+        log("== genome")
+        gd = os.path.join(d, "genome")
+        os.makedirs(gd)
+        gfa, gpaf, glens, _ = build_genome(gd, native)
+        expect_pin("genome.fa", gfa)
+        expect_pin("genome.paf", gpaf)
+        with open(gpaf, "rb") as fh:
+            tg = pafio.parse_paf_data(fh.read())
+        n_groups = len(runner.split_by_contig(tg))
+        expect_equal("contig groups of genome.paf", n_groups, GENOME_CONTIGS)
+        expect_equal("its longest contig is GENOME_SPREAD times its "
+                     "shortest or more",
+                     int(glens.max()) >= 10 * int(glens.min()), True)
+
+        def genome_pipeline(n_workers, tag, profile_dir=None):
+            """run_pipeline on genome.paf with a pool made from genome.fa,
+            in ``n_workers`` worker threads, through ``measure`` under
+            ``tag`` (and the profiler hook when ``profile_dir`` is given);
+            its output pinned, K2 launched once and K4's count and fill, K6
+            and K5 once per contig group."""
+            os.environ["PAFFY_TPU_PIPELINE_THREADS"] = str(n_workers)
+            if profile_dir:
+                os.environ["PAFFY_TPU_PROFILE"] = profile_dir
+
+            def call():
+                timer = CommandTimer("run_pipeline genome")
+                out = runner.run_pipeline(
+                    tg, mismatch.SequencePool.from_fasta_files([gfa]))
+                timer.done()
+                return out
+            try:
+                piped = measure(tag, call)
+            finally:
+                os.environ.pop("PAFFY_TPU_PIPELINE_THREADS")
+                os.environ.pop("PAFFY_TPU_PROFILE", None)
+            out = os.path.join(gd, "run_pipeline.paf")
+            with open(out, "wb") as fh:
+                fh.write(pafio.serialize_paf_bytes(piped))
+            expect_pin(tag, out, pin="run_pipeline genome")
+            expect_equal(f"build_ext launches during {tag}",
+                         launches[tag]["build_ext"], 1)
+            for k in ("run_counts", "run_fill_cigar", "chain_dp",
+                      "tile_sweep"):
+                expect_equal(f"{k} launches during {tag} == contig groups",
+                             launches[tag][k], n_groups)
+            split = ", ".join(f"{k} {v:.4f}"
+                              for k, v in phase_split[tag].items())
+            log(f"{tag}: {len(tg)} records in {walls[tag]:.4f} s, "
+                f"{len(tg) / walls[tag]:.1f} records/s; phases summed over "
+                f"the workers ({split}); peak device memory "
+                f"{peaks[tag] / 2**20:.1f} MiB")
+
+        genome_tags = []
+        for i, n_workers in enumerate(GENOME_THREADS):
+            genome_tags.append(f"run_pipeline genome, {n_workers} "
+                               f"worker(s), run {i + 1}")
+            genome_pipeline(n_workers, genome_tags[-1])
+        n_workers = max(GENOME_THREADS)
+        tag = f"run_pipeline genome, {n_workers} workers, profiled"
+        gprof = os.path.join(d, "genome_traces")
+        genome_pipeline(n_workers, tag, gprof)
+        traces = os.listdir(gprof)
+        expect_equal("genome traces written", len(traces), 1)
+        trace = os.path.join(gprof, traces[0])
+        busy, by_cat, k6_us, k6_n = device_busy(trace, "chain_dp")
+        n6, over6, most6, streams6 = kernel_overlap(trace, "chain_dp")
+        n2, *_, streams2 = kernel_overlap(trace, "build_ext")
+        expect_equal("K2 device events in the genome trace", n2, 1)
+        expect_equal("K6 device events in the genome trace == contig "
+                     "groups", n6, n_groups)
+        expect_equal("K6 ran on worker streams, not K2's (the caller's)",
+                     len(streams6) > 1 and not set(streams6) & set(streams2),
+                     True)
+        prof_wall = walls[tag]
+        log(f"profile of {tag}: device busy {busy:.6f} s of {prof_wall:.4f}"
+            f" s wall: busy share {busy / prof_wall:.4%}, idle share "
+            f"{1 - busy / prof_wall:.4%}; K6: {n6} launches, {over6} of them "
+            f"overlapping another in time, at most {most6} at once, on "
+            f"streams {streams6} (K2 on {streams2}), {k6_us / 1e3:.4f} ms "
+            f"in all; device time by kind (ms): "
+            f"{ {k: round(v / 1e3, 4) for k, v in by_cat.items()} }")
+        log("genome walls: " + json.dumps({
+            "gpu": gpu, "records": len(tg), "contig_groups": n_groups,
+            "seconds": {tag: walls[tag] for tag in genome_tags},
+            "device_busy_share_profiled": busy / prof_wall,
+            "k6_overlapping": over6, "k6_most_at_once": most6}))
+        genome_launches = launches[genome_tags[1]]
+        shutil.rmtree(gd)
+        del tg
+
         log("== mesh")
         cards = devconf.devices()
         log(f"distinct cards: {len(cards)} "
@@ -1997,6 +2204,7 @@ def run(torch) -> dict:
          "source": f"paffy_tpu_torch/csrc/{sources[name]}",
          "replaces": replaces[name],
          "launches": launches[path_of[name]][name],
+         "launches_run_pipeline_genome": genome_launches[name],
          "max_abs_err": errs[name], "ms": ms[name],
          "ms_in_a_row": row_ms[name], "in_a_row": in_a_row[name],
          "plain_ms": plain_ms[name], "bound_ms": bound_ms[name],

@@ -47,8 +47,9 @@ raises on non-zero):
     const char* paffy_error_string(int code)
 
 ``LAUNCHES`` counts kernel launches per kernel name.  Each wrapper adds one
-where it launches its kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+(``count_launch``, under a lock: the pipeline's worker threads launch at
+once) where it launches its kernel and nowhere else, so a run can show
+that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -73,11 +74,19 @@ LAUNCHES = {"piece_compare": 0, "build_ext": 0, "run_counts": 0,
 
 _lock = threading.Lock()
 _lib = None
+_count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``LAUNCHES``."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def sources() -> list[Path]:

@@ -168,7 +168,7 @@ def chain_dp_groups(goff, qs, ts, score, qe_s, te_s, idx_s, lo, w, pos,
         cs_sorted.data_ptr(), cs.data_ptr(), pred.data_ptr(),
         kernels.stream_of(cs))
     kernels.check(rc, "chain_dp")
-    kernels.LAUNCHES["chain_dp"] += 1
+    kernels.count_launch("chain_dp")
     return cs, pred
 
 

@@ -151,5 +151,5 @@ def piece_match_counts(ext: torch.Tensor, table: torch.Tensor,
         dev, ext.data_ptr(), ext.numel(), table.data_ptr(), n_pieces,
         match.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "piece_compare")
-    kernels.LAUNCHES["piece_compare"] += 1
+    kernels.count_launch("piece_compare")
     return match

@@ -83,4 +83,4 @@ def group_stats(ext: torch.Tensor, table: torch.Tensor, match: torch.Tensor,
         match.data_ptr(), cols.data_ptr(), totals.data_ptr(),
         kernels.stream_of(ext))
     kernels.check(rc, "group_stats")
-    kernels.LAUNCHES["group_stats"] += 1
+    kernels.count_launch("group_stats")

@@ -17,6 +17,8 @@ and the H100's have not been measured yet.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -75,6 +77,8 @@ class SequencePool:
         self.device = devconf.device()
         self._ext_t = None
         self._ext_copies: dict[torch.device, torch.Tensor] = {}
+        # ext and its copies are made once, whichever threads ask at once
+        self._ext_lock = threading.RLock()
 
     @property
     def pool_len(self) -> int:
@@ -121,15 +125,18 @@ class SequencePool:
     @property
     def ext(self) -> torch.Tensor:
         """u8 [2 * pool_len] extended pool on ``device``, built on first use
-        from the host pool (uploaded through pinned memory).  The raw pool's
-        device copy is freed once ext exists: the compare reads only ext."""
-        if self._ext_t is None:
-            with phases.timed("pool upload", self.device):
-                raw = devconf.upload(self._pool_np, self.device)
-            with phases.timed("K2", self.device):
-                self._ext_t = build_ext_pool(raw)
-            del raw
-        return self._ext_t
+        from the host pool (uploaded through pinned memory), once: a thread
+        that asks while another builds it waits for that build.  The raw
+        pool's device copy is freed once ext exists: the compare reads only
+        ext."""
+        with self._ext_lock:
+            if self._ext_t is None:
+                with phases.timed("pool upload", self.device):
+                    raw = devconf.upload(self._pool_np, self.device)
+                with phases.timed("K2", self.device):
+                    self._ext_t = build_ext_pool(raw)
+                del raw
+            return self._ext_t
 
     def ext_on(self, dev: torch.device) -> torch.Tensor:
         """``ext`` on ``dev``: the same tensor on the pool's own device,
@@ -138,9 +145,10 @@ class SequencePool:
         dev = torch.device(dev)
         if dev == self.device:
             return self.ext
-        if dev not in self._ext_copies:
-            self._ext_copies[dev] = self.ext.to(dev)
-        return self._ext_copies[dev]
+        with self._ext_lock:
+            if dev not in self._ext_copies:
+                self._ext_copies[dev] = self.ext.to(dev)
+            return self._ext_copies[dev]
 
     def subset(self, names) -> "SequencePool":
         """A pool of only the sequences ``names`` that this pool holds, in

@@ -68,7 +68,7 @@ def build_ext_pool(pool: torch.Tensor) -> torch.Tensor:
                                         ext.data_ptr(),
                                         kernels.stream_of(pool))
     kernels.check(rc, "build_ext")
-    kernels.LAUNCHES["build_ext"] += 1
+    kernels.count_launch("build_ext")
     return ext
 
 

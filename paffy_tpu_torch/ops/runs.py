@@ -151,7 +151,7 @@ def run_counts(ext: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
         ext.device.index, ext.data_ptr(), ext.numel(), table.data_ptr(),
         table.shape[1], counts.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "run_counts")
-    kernels.LAUNCHES["run_counts"] += 1
+    kernels.count_launch("run_counts")
     return counts
 
 
@@ -189,4 +189,4 @@ def run_fill_cigar(ext: torch.Tensor, table: torch.Tensor,
         table.shape[1], first_dest.data_ptr(), new_ops.data_ptr(),
         new_lens.data_ptr(), kernels.stream_of(ext))
     kernels.check(rc, "run_fill_cigar")
-    kernels.LAUNCHES["run_fill_cigar"] += 1
+    kernels.count_launch("run_fill_cigar")

@@ -223,5 +223,5 @@ def tile_sweep(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
         hist.data_ptr(), n, cap, tile, levels.data_ptr(),
         kernels.stream_of(levels))
     kernels.check(rc, "tile_sweep")
-    kernels.LAUNCHES["tile_sweep"] += 1
+    kernels.count_launch("tile_sweep")
     return levels

@@ -4,24 +4,58 @@ paffy_tpu/parallel/runner.py: ``split_by_contig`` :33, ``assign_shards``
 ``run_pipeline`` :115, ``concat_tables`` :159).
 
 The reference splits a PAF per contig (paffy split_file) and runs
-``add_mismatches | chain | tile | trim`` on each shard
+``add_mismatches | chain | tile | trim`` on each shard as background jobs
 (tests/paf_pipeline_test.sh:38-67).  Here records are grouped by contig,
 the groups are balanced over shards by contig length, each group runs the
 fused stage, and the outputs are concatenated in group order, so the bytes
-do not depend on the shard count.  On the one card of the port the groups
-run one after another, with no thread pool: the output is in group order
-either way.  The stage's device work is the port's: K2 and K4 in the
-encode, K6 in the chain, K5 in the tile.  With a mesh
-(parallel/pipeline.py), ``sharded_pipeline_stage`` puts the chain's groups
-and the tile's query sequences on the mesh's data rows.
+do not depend on the shard count or on the order in which groups finish.
+Without a mesh, the groups run in ``PAFFY_TPU_PIPELINE_THREADS`` worker
+threads (default min(cpu count, 4), as in paffy_tpu), the in-process
+counterpart of those jobs: one group's native C passes (which release the
+GIL) overlap another group's kernels, and several groups' kernels run on
+the card at once, since each worker runs its groups on a CUDA stream of
+its own.  The stage's device work is the port's: K2 and K4 in the encode,
+K6 in the chain, K5 in the tile.  With a mesh (parallel/pipeline.py),
+``sharded_pipeline_stage`` puts the chain's groups and the tile's query
+sequences on the mesh's data rows, and the groups run one after another.
+
+What the workers share, and why it is safe:
+  * ``SequencePool.ext`` (K2's output): built once on the caller's stream
+    before any worker starts (and built under the pool's lock in any
+    case); each worker's stream waits for the caller's first, and the
+    caller's waits for every worker's at the end.  ``ext_on``'s copies are
+    made under the same lock (the mesh path, which runs no workers).
+  * ``kernels.load`` and ``native.get_lib``: built and loaded under their
+    locks.  No kernel source keeps host state; K5 and K6 set their shared
+    memory attribute with ``cudaFuncSetAttribute`` at each launch, which
+    is thread-safe, and every entry point launches on the stream it is
+    given (PyTorch's current stream, which is per thread).  The C passes
+    of the pipeline keep no static state (paffy_io.cpp's only static, the
+    base tables of the column compare, is not on this path).
+  * ``kernels.LAUNCHES`` and ``phases.SECONDS``: updated under locks; a
+    phase's device sync is of the current stream, and its seconds are
+    summed over the workers.
+  * ``tile_device.tile_plan``'s and the chain's readbacks, and
+    ``devconf.upload``/``download``: on the current stream, through
+    PyTorch's pinned host allocator, which is thread-safe and keeps a
+    pinned block until its copy's stream has passed it.
+  * The input table: each worker reads it (``take``) and writes nothing
+    but its own group's tables.
+A worker's exception propagates out of ``run_pipeline``: that of the first
+failing group in run order, as paffy_tpu's ``ex.map`` gives it.
 """
 
 from __future__ import annotations
 
+import os
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import fields, replace
 from functools import partial
 
 import numpy as np
+import torch
 
 from paffy_tpu_torch import phases
 from paffy_tpu_torch.core import pafio
@@ -99,7 +133,9 @@ def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
                  by_query: bool = True, mesh=None) -> PafTable:
     """The fused pipeline per contig group, concatenated in group order.
     ``seqs`` is {name: sequence} or a SequencePool.  With ``mesh``, each
-    group runs ``sharded_pipeline_stage``; the bytes are the same."""
+    group runs ``sharded_pipeline_stage``, one after another; without one,
+    the groups run in worker threads (see the module's docstring).  The
+    bytes are the same either way."""
     pool = seqs if isinstance(seqs, SequencePool) else SequencePool(seqs)
     groups = split_by_contig(t, by_query=by_query)
     if not groups:
@@ -107,9 +143,57 @@ def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
     lens = t.qlen if by_query else t.tlen
     shards = assign_shards(groups, [int(lens[g[0]]) for g in groups],
                            n_shards)
-    out = {gi: sharded_pipeline_stage(t.take(groups[gi]), pool, mesh)
-           for shard in shards for gi in shard}
+
+    def run_group(gi: int) -> PafTable:
+        return sharded_pipeline_stage(t.take(groups[gi]), pool, mesh)
+
+    order = [gi for shard in shards for gi in shard]
+    n_workers = min(len(order), int(os.environ.get(
+        "PAFFY_TPU_PIPELINE_THREADS", min(os.cpu_count() or 1, 4))))
+    if mesh is None and n_workers > 1:
+        outs = map_on_streams(run_group, order, n_workers, pool)
+    else:
+        outs = [run_group(gi) for gi in order]
+    out = dict(zip(order, outs))
     return concat_tables([out[gi] for gi in range(len(groups))])
+
+
+def map_on_streams(fn, items: list, n_workers: int,
+                   pool: SequencePool) -> list:
+    """``[fn(x) for x in items]`` in ``n_workers`` threads, each running
+    its calls on a CUDA stream of its own on the pool's device (on the
+    CPU, in plain threads).  ``pool.ext`` is built first, on the caller's
+    stream, and every worker stream waits for it; the caller's stream
+    waits for every worker stream before this returns, so what the caller
+    later frees or reads is past the workers' work.  Results come in the
+    order of ``items``; an exception is that of the first failing item in
+    that order."""
+    if pool.device.type != "cuda":
+        with ThreadPoolExecutor(max_workers=n_workers) as ex:
+            return list(ex.map(fn, items))
+    pool.ext                  # K2, once, on the caller's stream
+    caller = torch.cuda.current_stream(pool.device)
+    streams = [torch.cuda.Stream(pool.device) for _ in range(n_workers)]
+    free = queue.SimpleQueue()
+    for s in streams:
+        s.wait_stream(caller)
+        free.put(s)
+    local = threading.local()
+
+    def take_stream() -> None:
+        local.stream = free.get()
+
+    def on_stream(x):
+        with torch.cuda.stream(local.stream):
+            return fn(x)
+
+    try:
+        with ThreadPoolExecutor(max_workers=n_workers,
+                                initializer=take_stream) as ex:
+            return list(ex.map(on_stream, items))
+    finally:
+        for s in streams:
+            caller.wait_stream(s)
 
 
 def concat_tables(tables: list[PafTable]) -> PafTable:

@@ -6,8 +6,9 @@ and K6 (chip_smoke.k6_edge_cases, at two counts of recent candidates); K4,
 K5 and K6 also against the C passes, K7 with its tables cut into seq
 ranges, a
 whole chaining on the card against the same on the CPU, the device check
-of the kernel library, and, on a machine with two cards or more, the mesh
-path with slots on two cards against one card.
+of the kernel library, run_pipeline's worker threads on streams of their
+own against its serial run, and, on a machine with two cards or more, the
+mesh path with slots on two cards against one card.
 
 Needs a CUDA device and nvcc; skips without a device.  This file imports no
 JAX and nothing of paffy_tpu, so it also runs where JAX is absent:
@@ -17,6 +18,7 @@ JAX and nothing of paffy_tpu, so it also runs where JAX is absent:
 
 import pathlib
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -468,3 +470,50 @@ def test_mesh_on_two_cards_equals_one_card(cuda, monkeypatch, tmp_path):
         torch.device("cuda", 1)
     # launches on cuda:1 leave PyTorch's current device as it was
     assert torch.cuda.current_device() == 0
+
+
+def test_threaded_run_pipeline_on_worker_streams(cuda, monkeypatch,
+                                                 tmp_path):
+    """run_pipeline on chip_smoke's genome in 4 worker threads equals its
+    serial run on the card; each worker runs its groups on one stream of
+    its own, none the default stream, and every kernel but K2 (the
+    caller's, once) launches on a worker stream."""
+    monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
+    fa, paf, lens, _ = chip_smoke.build_genome(
+        str(tmp_path), native, n_contigs=8, seq_len=400_000, n_records=12,
+        m_columns=300_000)
+    t = parse_paf_text(pathlib.Path(paf).read_text())
+    outs, seen, used = [], [], []
+    stage, stream_of = runner.sharded_pipeline_stage, kernels.stream_of
+
+    def spy(*args):
+        seen.append((threading.get_ident(), torch.cuda.current_stream()))
+        return stage(*args)
+
+    def spy_stream(x):
+        used.append(stream_of(x))
+        return used[-1]
+    for n_workers in (1, 4):
+        monkeypatch.setenv("PAFFY_TPU_PIPELINE_THREADS", str(n_workers))
+        if n_workers > 1:
+            monkeypatch.setattr(runner, "sharded_pipeline_stage", spy)
+            monkeypatch.setattr(kernels, "stream_of", spy_stream)
+        kernels.reset_launch_counts()
+        outs.append(bytes(serialize_paf_bytes(runner.run_pipeline(
+            t, port_mm.SequencePool.from_fasta_files([fa])))))
+        counts = dict(kernels.LAUNCHES)
+        assert counts["build_ext"] == 1
+        for k in ("run_counts", "run_fill_cigar", "chain_dp", "tile_sweep"):
+            assert counts[k] == len(lens)
+    assert outs[0] == outs[1]
+    default = torch.cuda.default_stream(cuda)
+    streams = {}
+    for tid, s in seen:
+        streams.setdefault(tid, set()).add(s.cuda_stream)
+    assert 1 < len(streams) <= 4
+    assert all(len(s) == 1 for s in streams.values())
+    worker = {h for s in streams.values() for h in s}
+    assert len(worker) == len(streams) and default.cuda_stream not in worker
+    # K2 on the caller's stream, the other 4 kernels per group on workers'
+    assert used.count(default.cuda_stream) == 1
+    assert set(used) - {default.cuda_stream} == worker

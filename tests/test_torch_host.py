@@ -5,9 +5,10 @@ on the same seeded inputs: equal arrays, equal bytes.  Also chip_smoke.py's
 synthesis at a small scale through both packages' native libraries.
 
 Run as a script, this file prints the digests that chip_smoke.py pins
-(chromosome scale, a few minutes and ~3 GB of memory):
+(chromosome scale, a few minutes and ~3 GB of memory; ``genome`` after
+``--pins``: only those of the many-contig genome):
 
-    PAFFY_TPU_PLATFORM=cpu python tests/test_torch_host.py --pins
+    PAFFY_TPU_PLATFORM=cpu python tests/test_torch_host.py --pins [genome]
 """
 
 import dataclasses
@@ -685,6 +686,23 @@ def pipeline_pins(d, fa, chain_paf) -> dict:
     return pins
 
 
+def genome_pins(d) -> dict:
+    """chip_smoke.build_genome at full size through paffy_tpu's native
+    library, and paffy_tpu's run_pipeline on it (one shard, its own
+    worker threads), as digests."""
+    from paffy_tpu.core.fasta import read_fasta
+    from paffy_tpu.parallel.runner import run_pipeline
+    os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
+    fa, paf, _, _ = chip_smoke.build_genome(d, ref_native)
+    t = ref_pafio.parse_paf_data(pathlib.Path(paf).read_bytes())
+    out = os.path.join(d, "run_pipeline_genome.paf")
+    pathlib.Path(out).write_bytes(bytes(ref_pafio.serialize_paf_bytes(
+        run_pipeline(t, read_fasta(fa), n_shards=1))))
+    return {"genome.fa": chip_smoke.sha256_file(fa),
+            "genome.paf": chip_smoke.sha256_file(paf),
+            "run_pipeline genome": chip_smoke.sha256_file(out)}
+
+
 def make_pins(d) -> dict:
     """The digests chip_smoke.py pins: its chromosome-scale synthesis
     through paffy_tpu's native library; paffy_tpu's view -s and
@@ -728,6 +746,7 @@ def make_pins(d) -> dict:
         print(f"paffy_tpu {tag}: {sec:.2f} s on the host")
     assert digests["dechunk"] == pins["in.paf"]
     pins.update(digests)
+    pins.update(genome_pins(d))
     return pins
 
 
@@ -765,7 +784,8 @@ def test_pins_are_digests():
         "seqs.fa", "in.paf", "view -s", "view -s -t", "add_mismatches",
         "add_mismatches -a", "tile.paf", "tile", "chain.paf", "chain",
         "pipeline add_mismatches", "pipeline chain", "pipeline tile",
-        "pipeline trim", "run_pipeline", *HOST_PINS}
+        "pipeline trim", "run_pipeline", *HOST_PINS, "genome.fa",
+        "genome.paf", "run_pipeline genome"}
     for v in chip_smoke.PINS.values():
         assert len(v) == 64 and int(v, 16) >= 0
     assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()
@@ -774,5 +794,6 @@ def test_pins_are_digests():
 if __name__ == "__main__" and "--pins" in sys.argv:
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        for k, v in make_pins(tmp).items():
+        pins = (genome_pins if "genome" in sys.argv else make_pins)(tmp)
+        for k, v in pins.items():
             print(f'    "{k}": "{v}",')
