@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
-"""Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s``,
-``add_mismatches``, ``tile``, ``chain`` and ``trim``, the fused
-``add_mismatches | chain | tile | trim`` pipeline (also in worker threads
-over a many-contig genome), the (data, seq) mesh
-path and the multi-process runner, at chromosome scale through the port's
-CUDA kernels; every host-only paffy and faffy command at the same scale,
-in process and through the native fast lane (bin/paffy-torch); and
-``chain`` under the profiler hook (PAFFY_TPU_PROFILE).
+"""Smoke run of paffy_tpu_torch on one NVIDIA GPU: ``paffy view -s`` (also
+over full 256 MiB streaming batches) and ``view -a``, ``add_mismatches``,
+``tile``, ``chain`` and ``trim``, the fused ``add_mismatches | chain | tile
+| trim`` pipeline (also in worker threads and on a mesh over a many-contig
+genome), the package's library surface, the (data, seq) mesh path and the
+multi-process runner, at chromosome scale through the port's CUDA
+kernels; every host-only paffy and faffy command at the same scale, in
+process and through the native fast lane (bin/paffy-torch); and ``chain``
+under the profiler hook (PAFFY_TPU_PROFILE).
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
@@ -40,6 +41,11 @@ Phases (any failure exits non-zero and prints no result line):
               batch (commands.common.BATCH_BYTES) cut so that in.paf spans
               MIN_BATCHES batches or more: the same pins, the same kernels
               launched.
+   render  -- ``view -a`` of the first records of in.paf whose rendering
+              passes RENDER_SLICES - 1 slices of commands.view's 64 MiB
+              (render_input): its digest pinned, the rendering cut into
+              RENDER_SLICES slices or more (native.view_render_batch
+              counted), K1 and K2 launched.
 6. runs    -- K4 (the count, and the fill of the =/X cigar at its final
               slots) at full size, in in.paf's cigar, and on its edge cases
               (k4_edge_cases) against its plain versions on the card and
@@ -71,6 +77,17 @@ Phases (any failure exits non-zero and prints no result line):
               version (on the host: 216,159 records) and the C sweep; then
               ``run_pipeline`` in process on the same table with a pool
               from the same FASTA, pinned, with its records per second.
+   library -- library_phase: the package's exports as a program uses
+              them (pt.pafio.read_paf_file, pt.fasta.load_sequences into a
+              SequencePool, column_match_counts, encode_mismatches into
+              pt.pafio.write_paf_file, shatter and pipeline_stage into
+              pt.pafio.serialize_paf, and name_ids, copy, record_ops and
+              n_ops on the shattered table): the counts equal the C loop's
+              and sum to the pinned view -s totals, the encoded file and
+              the pipeline's text equal the add_mismatches and
+              run_pipeline pins, the table's facts are known integers, the
+              pool is on the card, and K1, K2, K4's count and fill, K5 and
+              K6 each launch; each step's wall and launches printed.
    host    -- host_phase through the port's ``paffy_main`` and
               ``faffy_main``: invert, dedupe -a, filter, to_bed, split_file,
               faffy chunk, merge and extract, upconvert and dechunk at full
@@ -100,14 +117,19 @@ Phases (any failure exits non-zero and prints no result line):
               shattered into its 216,913 gapless records, both files
               pinned), with a pool made from the FASTA inside each run,
               at PAFFY_TPU_PIPELINE_THREADS = GENOME_THREADS in turns
-              (1, 4, 4, 1): each output pinned to paffy_tpu's run_pipeline
+              (1, 4): each output pinned to paffy_tpu's run_pipeline
               on the CPU, K2 launched once and K4's count and fill, K6 and
               K5 once per contig group; each run's wall, records/s and
               phases (summed over the workers) printed.  Then once at 4
               workers under PAFFY_TPU_PROFILE (the port's CommandTimer
               hook): its busy share, and how many of K6's launches overlap
               in time and on which streams, K6 on worker streams and not
-              on K2's (the caller's).
+              on K2's (the caller's).  Then run_pipeline on it over a
+              (4,2) mesh of slots (its data rows split each group's chain
+              groups and tile sequences), pinned to the same digest; and
+              ``view -s`` of genome.paf's lines repeated (repeat_lines)
+              past BIG_BATCHES - 1 batches of the default BATCH_BYTES,
+              pinned, one K1 launch a batch, BIG_BATCHES or more.
 10. mesh   -- column_counts_multichip on in.paf over a (1,1) mesh of the
               first card, then over 8 slots filled round robin from the
               cards present as (4,2), (8,1) and (2,4) (all cuda:0 on one
@@ -163,6 +185,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -189,8 +212,10 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # chain_input (paffy_tpu's shatter of in.paf), of paffy_tpu's chain on it,
 # of its add_mismatches, chain, tile and trim one after another from it,
 # and of its run_pipeline on it; of host_phase's outputs through
-# paffy_tpu's commands; of the many-contig genome (build_genome) and of
-# paffy_tpu's run_pipeline on it; made by tests/test_torch_host.py --pins
+# paffy_tpu's commands; of its view -a of render_input(in.paf); of the
+# many-contig genome (build_genome), of paffy_tpu's run_pipeline on it and
+# of its view -s of genome.paf repeated (repeat_lines); made by
+# tests/test_torch_host.py --pins
 PINS = {
     "seqs.fa": "5e4d5d8787566cbba4677b110e206d3355fdabe151b45a21851ab56c9f6b9c80",
     "in.paf": "056d1e714c15d00b20db3ecc10efba39f4c2322ec8a4b15874d1f08514b2f769",
@@ -224,14 +249,17 @@ PINS = {
     "genome.fa": "fa7c4f43fbb8c3537bccca8b583e85e410613b4289216b7b5cb92cc724fbdaee",
     "genome.paf": "a5b6398f6f4bc5b82a88ac31ee74f9507cb1daa257b9fd4c830812263672e05a",
     "run_pipeline genome": "17523d674f25a24bf0cb425cb62ed65db436b39ae27414a682fd08ecae08d7e7",
+    "view -a": "cfe62ec55131efaecb84060535922cabb5689ad688a5c8feb0d2c4b04a611cdd",
+    "view -s genome repeated": "76172a928c822731419a34e6c7d9e800aced8365015708f8b522c5debf4eae8b",
 }
 
 # the many-contig genome, see build_genome: its contig count, the factor
 # between its longest and its shortest contig, and the worker counts of
-# its run_pipeline runs (PAFFY_TPU_PIPELINE_THREADS), in turns
+# its run_pipeline runs (PAFFY_TPU_PIPELINE_THREADS), in turns (two runs,
+# not four, to make room for the library, render and full-batch phases)
 GENOME_CONTIGS = 24
 GENOME_SPREAD = 12
-GENOME_THREADS = (1, 4, 4, 1)
+GENOME_THREADS = (1, 4)
 # the K1 edge cases, see k1_edge_cases
 K1_EDGE_LABELS = ("every residue, + strand", "every residue, - strand",
                   "both ends of ext")
@@ -270,6 +298,15 @@ SPLIT_MIN_LENGTH = 200_000_000
 # the multi-batch runs of view -s and add_mismatches: in.paf in this many
 # streaming batches or more
 MIN_BATCHES = 4
+# view -a of the first records of in.paf whose rendering passes
+# RENDER_SLICES - 1 slices of commands.view's 64 MiB (its _render_sliced's
+# max_bytes), so that it is cut into RENDER_SLICES slices or more
+RENDER_SLICE_BYTES = 64 << 20
+RENDER_SLICES = 3
+# view -s of genome.paf's lines repeated past BIG_BATCHES - 1 streaming
+# batches of commands.common.BATCH_BYTES's default, so BIG_BATCHES or more
+FULL_BATCH_BYTES = 256 << 20
+BIG_BATCHES = 3
 # the fast lane phase: its pinned runs through bin/paffy-torch, each
 # (pin, argv, input file); the input files are in.paf, chain.paf, and
 # host_phase's twins.paf and up.paf, and the pipeline's tile output
@@ -855,6 +892,111 @@ def with_provenance(paf: bytes) -> bytes:
     return b"".join(out)
 
 
+def render_input(paf: bytes, min_bytes: int) -> bytes:
+    """The first lines of ``paf`` whose ``view -a`` rendering passes
+    ``min_bytes``: it is at least 3 bytes a cigar column (commands.view's
+    size model), so the shortest prefix whose columns times 3 pass it."""
+    size, out = 0, []
+    for line in paf.splitlines(keepends=True):
+        out.append(line)
+        cg = line[line.index(b"cg:Z:") + 5:].split(b"\t")[0]
+        size += 3 * sum(map(int, re.findall(rb"(\d+)[MID]", cg)))
+        if size > min_bytes:
+            return b"".join(out)
+    raise ValueError(f"the rendering of all of paf is {size} bytes, not "
+                     f"more than {min_bytes}")
+
+
+def repeat_lines(src: str, dst: str, min_bytes: int) -> int:
+    """Write ``src``'s bytes to ``dst`` again and again until ``dst`` holds
+    more than ``min_bytes``; returns the number of copies."""
+    with open(src, "rb") as fh:
+        data = fh.read()
+    copies = min_bytes // len(data) + 1
+    with open(dst, "wb") as fh:
+        for _ in range(copies):
+            fh.write(data)
+    return copies
+
+
+def library_phase(paf, fa, out_dir):
+    """The port's library surface, as a user's program drives it: the
+    package's exports (``import paffy_tpu_torch as pt``) and the device
+    steps of ops.mismatch, ops.transforms and parallel.runner, on in.paf
+    and seqs.fa.  Steps: ``pt.pafio.read_paf_file``;
+    ``pt.fasta.load_sequences`` into a ``SequencePool``;
+    ``column_match_counts`` (K2 on its first ``pool.ext``, K1);
+    ``encode_mismatches`` (K4 count and fill) into
+    ``pt.pafio.write_paf_file`` (out_dir/library_am.paf); ``shatter`` and
+    ``pipeline_stage`` on its gapless records (K4, K6, K5) into
+    ``pt.pafio.serialize_paf``; and ``name_ids``, ``copy``,
+    ``record_ops`` and ``n_ops`` on the shattered table (name_ids held to
+    a plain loop over the table, copy to be a deep one, record_ops to
+    give views).  Returns (results, {step: wall seconds},
+    {step: {kernel: launches}}): results holds the counts, the encoded
+    file's path, the pipeline's text and the shattered table's facts.
+    Launch counts are set to 0 just before each step and read just
+    after."""
+    import paffy_tpu_torch as pt
+    from paffy_tpu_torch import kernels
+    from paffy_tpu_torch.ops.mismatch import (SequencePool,
+                                              column_match_counts,
+                                              encode_mismatches)
+    from paffy_tpu_torch.ops.transforms import shatter
+    from paffy_tpu_torch.parallel.runner import pipeline_stage
+
+    walls, launches = {}, {}
+
+    def step(name, fn):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        launches[name] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        return out
+
+    t = step("read_paf_file", lambda: pt.pafio.read_paf_file(paf))
+    pool = step("load_sequences, SequencePool",
+                lambda: SequencePool(pt.fasta.load_sequences([fa])))
+    m, x = step("column_match_counts", lambda: column_match_counts(t, pool))
+    am = os.path.join(out_dir, "library_am.paf")
+    step("encode_mismatches, write_paf_file",
+         lambda: pt.pafio.write_paf_file(encode_mismatches(t, pool), am))
+    gapless = step("shatter", lambda: shatter(t))
+    piped = step("pipeline_stage, serialize_paf",
+                 lambda: pt.pafio.serialize_paf(pipeline_stage(gapless,
+                                                               pool)))
+
+    qid, tid, names = step("name_ids", gapless.name_ids)
+    c = step("copy", gapless.copy)
+    last = len(gapless) - 1
+    ops, lens = step("record_ops", lambda: gapless.record_ops(last))
+    n_ops = step("n_ops", lambda: gapless.n_ops)
+    seen: dict = {}
+    for i in range(len(gapless)):
+        if (qid[i] != seen.setdefault(gapless.qname[i], len(seen))
+                or tid[i] != seen.setdefault(gapless.tname[i], len(seen))):
+            raise AssertionError(f"name_ids differs from the plain loop at "
+                                 f"record {i}")
+    if names != list(seen):
+        raise AssertionError(f"name_ids' names {names} != {list(seen)}")
+    c.lens += 1
+    c.qname[0] = "copied"
+    if (gapless.lens == c.lens).any() or gapless.qname[0] == "copied":
+        raise AssertionError("copy shares an array with its source")
+    if not (np.shares_memory(ops, gapless.ops)
+            and np.shares_memory(lens, gapless.lens)):
+        raise AssertionError("record_ops made copies, not views")
+    facts = {"records": len(gapless), "ops": int(n_ops.sum()),
+             "ops per record": sorted(set(n_ops.tolist())),
+             "names": names, "query ids": sorted(set(qid.tolist())),
+             "target ids": sorted(set(tid.tolist())),
+             "last record's ops": (ops.tolist(), lens.tolist())}
+    return ({"matches": m, "mismatches": x, "add_mismatches": am,
+             "pipeline": piped, "shattered": facts,
+             "device": str(pool.device)}, walls, launches)
+
+
 # Starts one command and times it from its start to its exit, from a small
 # process of its own, as a user's shell starts it: not from chip_smoke.py's
 # process, which holds the card's context and gigabytes of pages.  Reads
@@ -1404,6 +1546,7 @@ def run(torch) -> dict:
     from paffy_tpu_torch import devconf, kernels, native, phases
     from paffy_tpu_torch.cli import faffy_main, paffy_main
     from paffy_tpu_torch.commands import common
+    from paffy_tpu_torch.commands import view as view_cmd
     from paffy_tpu_torch.core import pafio
     from paffy_tpu_torch.ops import (chain, chain_device, compare,
                                      group_stats, mismatch, mismatch_device,
@@ -1413,6 +1556,7 @@ def run(torch) -> dict:
     from paffy_tpu_torch.parallel import pipeline, runner
     from paffy_tpu_torch.utils.logging import CommandTimer
 
+    t_start = time.perf_counter()
     os.environ.pop("PAFFY_TPU_PLATFORM", None)
     dev = devconf.device()
     gpu = gpu_line()
@@ -1420,7 +1564,7 @@ def run(torch) -> dict:
         f"{torch.cuda.get_device_name(0)}; python {sys.version.split()[0]}; "
         f"numpy {np.__version__}")
 
-    log("== build")
+    log(f"== build (t+{time.perf_counter() - t_start:.1f} s)")
     cached = kernels.library_path().exists()
     t0 = time.perf_counter()
     kernels.build()
@@ -1476,31 +1620,32 @@ def run(torch) -> dict:
                          launches[tag][k], 1)
 
     with tempfile.TemporaryDirectory(prefix="paffy_smoke_") as d:
-        log("== synth")
+        log(f"== synth (t+{time.perf_counter() - t_start:.1f} s)")
         fa, paf, w = build_files(d, native)
         expect_pin("seqs.fa", fa)
         expect_pin("in.paf", paf)
 
-        log("== view")
+        log(f"== view (t+{time.perf_counter() - t_start:.1f} s)")
         for tag, flags in (("view -s", ["-s"]), ("view -s -t", ["-s", "-t"])):
             ours = os.path.join(d, "ours.txt")
             drive(tag, ["view", "-i", paf, *flags, fa], ours)
             with open(ours, "rb") as fh:
                 last = fh.read().decode().splitlines()[-1]
             log(f"{tag}: {last}")
-        fields = dict(kv.split(":", 1) for kv in last.split("\t")
-                      if ":" in kv)
-        expect_equal("Total-alignments", int(fields["Total-alignments"]),
-                     N_RECORDS)
-        expect_equal("Query-inserts", int(fields["Query-inserts"]),
+        view_fields = dict(kv.split(":", 1) for kv in last.split("\t")
+                           if ":" in kv)
+        expect_equal("Total-alignments",
+                     int(view_fields["Total-alignments"]), N_RECORDS)
+        expect_equal("Query-inserts", int(view_fields["Query-inserts"]),
                      w["n_ins"])
-        expect_equal("Query-deletes", int(fields["Query-deletes"]),
+        expect_equal("Query-deletes", int(view_fields["Query-deletes"]),
                      w["n_del"])
         expect_equal("Aligned-bases == M columns",
-                     int(fields["Aligned-bases"]), int(w["runs"].sum()))
+                     int(view_fields["Aligned-bases"]),
+                     int(w["runs"].sum()))
         launched("view -s", ("piece_compare", "build_ext"))
 
-        log("== counts")
+        log(f"== counts (t+{time.perf_counter() - t_start:.1f} s)")
         pool = mismatch.SequencePool.from_fasta_files([fa])
         g = pool._guard
         qoff, toff = pool.index["q_chr"][0] + g, pool.index["t_chr"][0] + g
@@ -1557,7 +1702,7 @@ def run(torch) -> dict:
                          torch.equal(got, plain) and np.array_equal(
                              devconf.to_host_i64(got), m_edge), True)
 
-        log("== add_mismatches")
+        log(f"== add_mismatches (t+{time.perf_counter() - t_start:.1f} s)")
         am = os.path.join(d, "am.paf")
         drive("add_mismatches", ["add_mismatches", "-i", paf, fa], am)
         launched("add_mismatches", ("build_ext", "run_counts",
@@ -1568,7 +1713,7 @@ def run(torch) -> dict:
             encoded = fh.read()
         log(f"add_mismatches wrote {len(encoded)} bytes")
 
-        log("== batches")
+        log(f"== batches (t+{time.perf_counter() - t_start:.1f} s)")
         # view -s and add_mismatches again, in.paf in several streaming
         # batches
         bb = os.path.getsize(paf) // (MIN_BATCHES + 1)
@@ -1591,7 +1736,35 @@ def run(torch) -> dict:
         launched("add_mismatches in batches", ("build_ext", "run_counts",
                                                "run_fill_cigar"))
 
-        log("== runs")
+        log(f"== render (t+{time.perf_counter() - t_start:.1f} s)")
+        # view -a over RENDER_SLICES slices or more of _render_sliced
+        expect_equal("commands.view's slice size", view_cmd._render_sliced.
+                     __defaults__[0], RENDER_SLICE_BYTES)
+        rpaf = os.path.join(d, "render.paf")
+        with open(paf, "rb") as fh, open(rpaf, "wb") as out:
+            out.write(render_input(fh.read(),
+                                   (RENDER_SLICES - 1) * RENDER_SLICE_BYTES))
+        sliced, render = [], native.view_render_batch
+
+        def counted(sl, *args):
+            sliced.append(len(sl))
+            return render(sl, *args)
+        native.view_render_batch = counted
+        try:
+            rendered = os.path.join(d, "rendered.txt")
+            drive("view -a", ["view", "-a", "-i", rpaf, fa], rendered)
+        finally:
+            native.view_render_batch = render
+        launched("view -a", ("piece_compare", "build_ext"))
+        expect_equal(f"view -a rendered in {RENDER_SLICES} slices or more "
+                     f"(records a slice: {sliced})",
+                     len(sliced) >= RENDER_SLICES, True)
+        log(f"view -a: {sum(sliced)} records, "
+            f"{os.path.getsize(rendered)} bytes in {len(sliced)} slices, "
+            f"{walls['view -a']:.4f} s wall; {gpu}")
+        os.remove(rendered)
+
+        log(f"== runs (t+{time.perf_counter() - t_start:.1f} s)")
         k = b.n_mops
         _, table4, dest4, ops4, lens4, n_runs, k4_err = k4_check(
             torch, devconf, native, runs, mismatch_device, pool.host_pool,
@@ -1611,7 +1784,7 @@ def run(torch) -> dict:
             log(f"ok: K4 count and fill == plain == C passes on its edge case "
                 f"{label} ({len(c['lens'])} runs, {n_edge} =/X runs)")
 
-        log("== tile")
+        log(f"== tile (t+{time.perf_counter() - t_start:.1f} s)")
         tpaf = os.path.join(d, "tile.paf")
         with open(tpaf, "wb") as fh:
             fh.write(tile_input(encoded))
@@ -1650,7 +1823,7 @@ def run(torch) -> dict:
                     f"(tile, record) pairs over {plan.tile_ids.numel()} "
                     f"tiles)")
 
-        log("== chain")
+        log(f"== chain (t+{time.perf_counter() - t_start:.1f} s)")
         # the chain input is the port's shatter of in.paf; chain_input
         # writes the same bytes from the synthesis
         cpaf = os.path.join(d, "chain.paf")
@@ -1693,7 +1866,7 @@ def run(torch) -> dict:
             log(f"ok: K6 at K = {k} == C chain DP on the prefixes and every "
                 f"edge case")
 
-        log("== pipeline")
+        log(f"== pipeline (t+{time.perf_counter() - t_start:.1f} s)")
         steps = (("add_mismatches", [fa]), ("chain", []), ("tile", []),
                  ("trim", []))
         src = cpaf
@@ -1739,7 +1912,51 @@ def run(torch) -> dict:
             f"{len(tp) / walls['run_pipeline']:.1f} records/s")
         del piped
 
-        log("== host")
+        log(f"== library (t+{time.perf_counter() - t_start:.1f} s)")
+        lib, lib_walls, lib_launches = library_phase(paf, fa, d)
+        expect_equal("the library's pool is on the card", lib["device"],
+                     str(dev))
+        for name, sec in lib_walls.items():
+            log(f"library {name}: {sec:.4f} s wall, launches "
+                f"{lib_launches[name]}; {gpu}")
+        lm, lx = lib["matches"], lib["mismatches"]
+        expect_equal("library column_match_counts == C loop per record",
+                     np.array_equal(lm, m_c) and np.array_equal(lx, x_c),
+                     True)
+        tm, tx = int(lm.sum()), int(lx.sum())
+        expect_equal("library counts: matches + mismatches == the pinned "
+                     "view -s's Aligned-bases", tm + tx,
+                     int(view_fields["Aligned-bases"]))
+        expect_equal("library counts: the pinned view -s's Avg-Identity",
+                     f"{float(np.float32(tm) / np.float32(tm + tx)):.6f}",
+                     view_fields["Avg-Identity"])
+        expect_pin("library encode_mismatches -> write_paf_file",
+                   lib["add_mismatches"], pin="add_mismatches")
+        lp = os.path.join(d, "library_pipeline.paf")
+        with open(lp, "wb") as fh:
+            fh.write(lib["pipeline"].encode("latin-1"))
+        expect_pin("library pipeline_stage -> serialize_paf", lp,
+                   pin="run_pipeline")
+        n_runs_w = len(w["runs"])
+        expect_equal("the shattered table's facts", lib["shattered"], {
+            "records": n_runs_w, "ops": n_runs_w, "ops per record": [1],
+            "names": ["q_chr", "t_chr"], "query ids": [0],
+            "target ids": [1],
+            "last record's ops": ([0], [int(w["runs"][-1])])})
+        lib_total = {k: sum(c.get(k, 0) for c in lib_launches.values())
+                     for k in kernels.LAUNCHES}
+        for k in ("build_ext", "piece_compare", "run_counts",
+                  "run_fill_cigar", "tile_sweep", "chain_dp"):
+            expect_equal(f"{k} launched on the library path ({lib_total[k]})",
+                         lib_total[k] >= 1, True)
+        log("library walls: " + json.dumps({"gpu": gpu,
+                                             "seconds": lib_walls,
+                                             "launches": lib_launches}))
+        os.remove(lp)
+        os.remove(lib["add_mismatches"])
+        del lib
+
+        log(f"== host (t+{time.perf_counter() - t_start:.1f} s)")
         hd = os.path.join(d, "host")
         os.makedirs(hd)
         kernels.reset_launch_counts()
@@ -1755,7 +1972,7 @@ def run(torch) -> dict:
             log(f"host {pin}: {sec:.4f} s wall")
         log(f"host commands: {sum(host_walls.values()):.4f} s wall in all")
 
-        log("== fast lane")
+        log(f"== fast lane (t+{time.perf_counter() - t_start:.1f} s)")
         expect_equal("the fast lane's link", native.build_fast(), fast)
         expect_equal("the fast lane is newer than its sources",
                      native.fast_is_fresh(), True)
@@ -1794,7 +2011,7 @@ def run(torch) -> dict:
         shutil.rmtree(fd)
         shutil.rmtree(hd)
 
-        log("== profile")
+        log(f"== profile (t+{time.perf_counter() - t_start:.1f} s)")
         # CUPTI's start-up on the process's first profiler run (seconds)
         # stays out of the command's wall: a warm-up run first
         t0 = time.perf_counter()
@@ -1826,7 +2043,7 @@ def run(torch) -> dict:
             f"ms in {k6_n} event(s); device time by kind (ms): "
             f"{ {k: round(v / 1e3, 4) for k, v in by_cat.items()} }")
 
-        log("== genome")
+        log(f"== genome (t+{time.perf_counter() - t_start:.1f} s)")
         gd = os.path.join(d, "genome")
         os.makedirs(gd)
         gfa, gpaf, glens, _ = build_genome(gd, native)
@@ -1913,10 +2130,49 @@ def run(torch) -> dict:
             "device_busy_share_profiled": busy / prof_wall,
             "k6_overlapping": over6, "k6_most_at_once": most6}))
         genome_launches = launches[genome_tags[1]]
+
+        log(f"== genome on a mesh (t+{time.perf_counter() - t_start:.1f} s)")
+        # the 24 contig groups through sharded_pipeline_stage on a (4,2)
+        # mesh of slots filled round robin from the cards: the mesh's data
+        # rows split each group's chain groups and tile sequences
+        cards = devconf.devices()
+        mesh42 = pipeline.make_mesh([cards[i % len(cards)] for i in range(8)],
+                                    dp=4, sp=2)
+        tag = "run_pipeline genome 4x2"
+        piped = measure(tag, lambda: runner.run_pipeline(
+            tg, mismatch.SequencePool.from_fasta_files([gfa]), mesh=mesh42))
+        out = os.path.join(gd, "run_pipeline_mesh.paf")
+        with open(out, "wb") as fh:
+            fh.write(pafio.serialize_paf_bytes(piped))
+        expect_pin(tag, out, pin="run_pipeline genome")
+        launched(tag, ("build_ext", "run_counts", "run_fill_cigar",
+                       "chain_dp", "tile_sweep"))
+        log(f"{tag} on {mesh42.devices}: {len(tg)} records in "
+            f"{walls[tag]:.4f} s wall, launches {launches[tag]}; {gpu}")
+        del piped
+
+        log(f"== view -s in full batches (t+"
+            f"{time.perf_counter() - t_start:.1f} s)")
+        expect_equal("commands.common.BATCH_BYTES is its default",
+                     common.BATCH_BYTES, FULL_BATCH_BYTES)
+        big = os.path.join(gd, "genome_repeated.paf")
+        copies = repeat_lines(gpaf, big, (BIG_BATCHES - 1) * FULL_BATCH_BYTES)
+        tag = "view -s genome repeated"
+        drive(tag, ["view", "-i", big, "-s", gfa],
+              os.path.join(gd, "big_view.txt"))
+        # one K1 launch a batch
+        n_big = launches[tag]["piece_compare"]
+        expect_equal(f"{tag}: {BIG_BATCHES} batches of {FULL_BATCH_BYTES} "
+                     f"bytes or more ({n_big} K1 launches)",
+                     n_big >= BIG_BATCHES, True)
+        launched(tag, ("build_ext",), once=("build_ext",))
+        log(f"{tag}: {copies} copies of genome.paf, {os.path.getsize(big)} "
+            f"bytes, {copies * len(tg)} records, in {n_big} batches: "
+            f"{walls[tag]:.4f} s wall; {gpu}")
         shutil.rmtree(gd)
         del tg
 
-        log("== mesh")
+        log(f"== mesh (t+{time.perf_counter() - t_start:.1f} s)")
         cards = devconf.devices()
         log(f"distinct cards: {len(cards)} "
             f"{[torch.cuda.get_device_name(c) for c in cards]}")
@@ -1992,7 +2248,7 @@ def run(torch) -> dict:
         log(f"launches during {tag}: {launches[tag]}")
         del staged, piped, tp
 
-        log("== multiprocess")
+        log(f"== multiprocess (t+{time.perf_counter() - t_start:.1f} s)")
         mp_out = os.path.join(d, "multiprocess.paf")
         t0 = time.perf_counter()
         run_world([cpaf, fa, mp_out, "--shards", "2", "--workdir",
@@ -2003,7 +2259,7 @@ def run(torch) -> dict:
         log(f"two processes of parallel.distributed on chain.paf: "
             f"{mp_wall:.4f} s wall, from their start to their exit")
 
-        log("== timing")
+        log(f"== timing (t+{time.perf_counter() - t_start:.1f} s)")
 
         def k1():
             return compare.piece_match_counts(ext, table, len(t))
@@ -2089,7 +2345,7 @@ def run(torch) -> dict:
             in_a_row[name] = (20 if ms[name] <= 250 else
                               max(2, int(15_000 / (3 * ms[name]))))
             row_ms[name] = cuda_ms(torch, fn, reps=7, batch=in_a_row[name])
-            plain_ms[name] = cuda_ms(torch, plain, reps=5, warm=1)
+            plain_ms[name] = cuda_ms(torch, plain, reps=3, warm=1)
             by_bytes = nbytes[name] / HBM_BYTES_PER_S * 1e3
             by_ops = n_ops.get(name, 0) / INT32_OPS_PER_S * 1e3
             bound_ms[name] = max(by_bytes, by_ops)
@@ -2135,7 +2391,7 @@ def run(torch) -> dict:
         for k in K6_SWEEP_K:
             for threads in K6_SWEEP_THREADS:
                 sweep_ms[f"chain_dp K={k} threads={threads}"] = cuda_ms(
-                    torch, k6(k6_full, k, threads), reps=5)
+                    torch, k6(k6_full, k, threads), reps=3)
         for tl in K5_TILES:
             for what, args in (("tile_input", k5_args),
                                ("the pipeline's tile input", k5_pipe_args)):
@@ -2205,6 +2461,7 @@ def run(torch) -> dict:
          "replaces": replaces[name],
          "launches": launches[path_of[name]][name],
          "launches_run_pipeline_genome": genome_launches[name],
+         "launches_library": lib_total[name],
          "max_abs_err": errs[name], "ms": ms[name],
          "ms_in_a_row": row_ms[name], "in_a_row": in_a_row[name],
          "plain_ms": plain_ms[name], "bound_ms": bound_ms[name],

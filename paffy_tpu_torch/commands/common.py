@@ -61,6 +61,9 @@ class _TextGlibcFacade:
         """Bytes or memoryview passthrough for bulk payloads."""
         return self._w.write(data)
 
+    def flush(self) -> None:
+        """Nothing, as ``GlibcWriter.flush``."""
+
     def close(self) -> None:
         self._w.close()
 
@@ -159,6 +162,11 @@ class GlibcWriter:
         self._fh.write(mv[:cut])
         self._tail = bytes(mv[cut:])
         return len(b)
+
+    def flush(self) -> None:
+        """Nothing: the stdio model has no interior flush, so the tail
+        stays staged and the output's bytes do not depend on a caller's
+        flushes."""
 
     def _end(self, flush_tail: bool) -> None:
         if self in _ACTIVE_WRITERS:

@@ -1,6 +1,9 @@
 """FASTA reading into the flat sequence pool, FASTA text reading and
-writing, and the ``name|length|start`` header codec of chunked sequences
-(counterpart of paffy_tpu/core/fasta.py).
+writing, base complementing, and the ``name|length|start`` header codec of
+chunked sequences (counterpart of paffy_tpu/core/fasta.py, with
+``COMPLEMENT_TABLE`` :32, ``UPPER_TABLE`` :38, ``reverse_complement_char``
+:43, ``reverse_complement`` :47, ``load_sequences`` :159 and
+``seq_to_bytes`` :213).
 
 A header is the whole line after '>' with trailing whitespace stripped
 (sonLib's semantics); sequence lines are wrap-agnostic.
@@ -14,6 +17,39 @@ from dataclasses import dataclass
 import numpy as np
 
 from paffy_tpu_torch import native
+
+# each base's complement, IUPAC ambiguity codes included, case kept
+# (sonLib's); every other character is its own complement
+_COMP = {
+    "a": "t", "c": "g", "g": "c", "t": "a",
+    "A": "T", "C": "G", "G": "C", "T": "A",
+    "m": "k", "r": "y", "w": "w", "s": "s", "y": "r", "k": "m",
+    "v": "b", "h": "d", "d": "h", "b": "v", "n": "n", "x": "x",
+    "M": "K", "R": "Y", "W": "W", "S": "S", "Y": "R", "K": "M",
+    "V": "B", "H": "D", "D": "H", "B": "V", "N": "N", "X": "X",
+}
+_COMP_TRANS = str.maketrans(_COMP)
+
+COMPLEMENT_TABLE = np.arange(256, dtype=np.uint8)
+COMPLEMENT_TABLE[[ord(k) for k in _COMP]] = [ord(v) for v in _COMP.values()]
+
+# a-z to A-Z, every other byte kept (the toupper of paf_encode_mismatches,
+# impl/paf.c:755-757)
+UPPER_TABLE = np.arange(256, dtype=np.uint8)
+UPPER_TABLE[ord("a"): ord("z") + 1] -= 32
+
+
+def reverse_complement_char(c: str) -> str:
+    return _COMP.get(c, c)
+
+
+def reverse_complement(s: str) -> str:
+    return s[::-1].translate(_COMP_TRANS)
+
+
+def seq_to_bytes(seq: str) -> np.ndarray:
+    """A sequence as a uint8 array of its latin-1 bytes."""
+    return np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
 
 
 def fasta_pool_from_bytes(datas: list[bytes]):
@@ -43,7 +79,7 @@ def pack_sequences(seqs: dict[str, str]
     index: dict[str, tuple[int, int]] = {}
     pos = 0
     for name, s in seqs.items():
-        b = np.frombuffer(s.encode("latin-1"), dtype=np.uint8)
+        b = seq_to_bytes(s)
         pool[pos:pos + len(b)] = b
         index[name] = (pos, len(b))
         pos += len(b)
@@ -82,6 +118,19 @@ def read_fasta(path_or_file) -> dict[str, str]:
     """{header: sequence} in file order; a repeated header keeps its last
     sequence."""
     return dict(read_fasta_list(path_or_file))
+
+
+def load_sequences(paths: list[str]) -> dict[str, str]:
+    """{name: sequence} of several FASTA files; a name repeated in a later
+    file takes that file's sequence (repeated stHash inserts).  Each file
+    is read as text by ``read_fasta``, as paffy_tpu reads it: the native
+    pack (``fasta_pool_from_bytes``) reads bytes, and its lines and
+    whitespace differ from the text reader's on files with other line
+    ends than LF and CRLF, or with bytes outside ASCII."""
+    seqs: dict[str, str] = {}
+    for p in paths:
+        seqs.update(read_fasta(p))
+    return seqs
 
 
 def write_fasta_record(fh, header: str, sequence: str,

@@ -1,6 +1,7 @@
 """PAF text <-> PafTable, and the paf_check sweep (counterpart of
-paffy_tpu/core/pafio.py: parse, ``serialize_paf_bytes``,
-``format_record``, ``paf_check`` :344-383).
+paffy_tpu/core/pafio.py: parse, ``parse_cigar_string`` :43,
+``serialize_paf`` :285, ``serialize_paf_bytes``, ``read_paf_file`` :315,
+``write_paf_file`` :322, ``format_record``, ``paf_check`` :344-383).
 
 The behavioural contract is the reference parser (impl/paf.c:137-209: tab
 tokenizer, strand validation, tag dispatch on the two-character code,
@@ -10,10 +11,13 @@ paf_check (impl/paf.c:427-461), both in the native library.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 
 from paffy_tpu_torch import native
-from paffy_tpu_torch.core.model import INT_MAX, OP_TO_CHAR, PafTable
+from paffy_tpu_torch.core.model import (CHAR_TO_OP, INT_MAX, OP_TO_CHAR,
+                                        PafTable)
 
 _CHECK_MESSAGES = ("Paf query start coordinates are invalid",
                    "Paf query end coordinates are invalid",
@@ -31,6 +35,28 @@ class PafFormatError(ValueError):
     def __init__(self, msg, line_no=None):
         super().__init__(msg)
         self.line_no = line_no
+
+
+_CIGAR_RE = re.compile(r"(\d+)([MIDX=])")
+
+
+def parse_cigar_string(s: str) -> list[tuple[int, int]]:
+    """A cigar string as [(op, length)]; an empty string gives [] (no
+    cigar, as cigar_parse returns NULL, impl/paf.c:71-73).  Any other
+    character raises PafFormatError."""
+    if not s:
+        return []
+    out = []
+    pos = 0
+    for m in _CIGAR_RE.finditer(s):
+        if m.start() != pos:
+            break
+        out.append((CHAR_TO_OP[m.group(2)], int(m.group(1))))
+        pos = m.end()
+    if pos != len(s):
+        raise PafFormatError(f"Got an unexpected character in paf cigar "
+                             f"string: {s[pos]!r}")
+    return out
 
 
 def parse_paf_text(text: str) -> PafTable:
@@ -112,6 +138,30 @@ def serialize_paf_bytes(t: PafTable, order=None) -> memoryview:
     return native.serialize_paf_arrays(ints, flags, t.type, t.qname, t.tname,
                                        t.ops, t.lens, t.off, order=order,
                                        raw_cig=t.raw_cg).data
+
+
+def serialize_paf(t: PafTable) -> str:
+    """The records as PAF lines, each with its newline, as a str (the
+    native serializer's bytes read as latin-1)."""
+    return bytes(serialize_paf_bytes(t)).decode("latin-1")
+
+
+def read_paf_file(path_or_file) -> PafTable:
+    """The table of a PAF file: a path, or a text file object."""
+    if hasattr(path_or_file, "read"):
+        return parse_paf_text(path_or_file.read())
+    with open(path_or_file, "r") as fh:
+        return parse_paf_text(fh.read())
+
+
+def write_paf_file(t: PafTable, path_or_file) -> None:
+    """``serialize_paf(t)`` to a path, or to a text file object."""
+    data = serialize_paf(t)
+    if hasattr(path_or_file, "write"):
+        path_or_file.write(data)
+    else:
+        with open(path_or_file, "w") as fh:
+            fh.write(data)
 
 
 def cigar_to_string(ops: np.ndarray, lens: np.ndarray) -> str:

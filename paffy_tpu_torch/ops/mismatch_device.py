@@ -15,27 +15,14 @@ the kernel is checked against on the card.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from paffy_tpu_torch import kernels
+from paffy_tpu_torch.core.fasta import COMPLEMENT_TABLE, UPPER_TABLE
 
-# complement pairs over UPPERCASED bases (IUPAC; W/S/N/X complement to
-# themselves, as does every byte outside the pairs)
-COMP_PAIRS = ((65, 84), (67, 71), (77, 75), (82, 89), (86, 66), (72, 68))
-
-
-def _comp_upper_table() -> np.ndarray:
-    upper = np.arange(256, dtype=np.uint8)
-    upper[ord("a"): ord("z") + 1] -= 32
-    comp = np.arange(256, dtype=np.uint8)
-    for a, b in COMP_PAIRS:
-        comp[a], comp[b] = b, a
-    return comp[upper]
-
-
-# comp(upper(c)) for every byte c
-COMP_UPPER_TABLE = _comp_upper_table()
+# comp(upper(c)) for every byte c (IUPAC; W/S/N/X complement to
+# themselves, as does every byte that is no base)
+COMP_UPPER_TABLE = COMPLEMENT_TABLE[UPPER_TABLE]
 
 
 def device_upper(c: torch.Tensor) -> torch.Tensor:

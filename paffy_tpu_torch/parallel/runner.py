@@ -197,10 +197,14 @@ def map_on_streams(fn, items: list, n_workers: int,
 
 
 def concat_tables(tables: list[PafTable]) -> PafTable:
-    """One table of the rows of ``tables`` (at least one, parsed cigars),
-    in order."""
+    """One table of the rows of ``tables`` (parsed cigars), in order; an
+    empty list gives ``PafTable.empty()``.  A raw-cigar table raises
+    AssertionError, as paffy_tpu's assert does (raised, so that ``python
+    -O`` keeps it)."""
+    if not tables:
+        return PafTable.empty()
     if any(x.raw_cg is not None for x in tables):
-        raise ValueError("concat_tables takes tables with parsed cigars")
+        raise AssertionError("concat_tables requires parsed-cigar tables")
     cols = {}
     for f in fields(PafTable):
         if f.name == "raw_cg":

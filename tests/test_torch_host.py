@@ -688,8 +688,10 @@ def pipeline_pins(d, fa, chain_paf) -> dict:
 
 def genome_pins(d) -> dict:
     """chip_smoke.build_genome at full size through paffy_tpu's native
-    library, and paffy_tpu's run_pipeline on it (one shard, its own
-    worker threads), as digests."""
+    library, paffy_tpu's run_pipeline on it (one shard, its own worker
+    threads), and its view -s of genome.paf's lines repeated
+    (chip_smoke.repeat_lines) past BIG_BATCHES - 1 full batches, as
+    digests."""
     from paffy_tpu.core.fasta import read_fasta
     from paffy_tpu.parallel.runner import run_pipeline
     os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
@@ -698,19 +700,27 @@ def genome_pins(d) -> dict:
     out = os.path.join(d, "run_pipeline_genome.paf")
     pathlib.Path(out).write_bytes(bytes(ref_pafio.serialize_paf_bytes(
         run_pipeline(t, read_fasta(fa), n_shards=1))))
-    return {"genome.fa": chip_smoke.sha256_file(fa),
+    pins = {"genome.fa": chip_smoke.sha256_file(fa),
             "genome.paf": chip_smoke.sha256_file(paf),
             "run_pipeline genome": chip_smoke.sha256_file(out)}
+    big = os.path.join(d, "genome_repeated.paf")
+    chip_smoke.repeat_lines(paf, big, (chip_smoke.BIG_BATCHES - 1)
+                            * chip_smoke.FULL_BATCH_BYTES)
+    out = os.path.join(d, "big_view.txt")
+    assert ref_main(["view", "-i", big, "-s", fa, "-o", out]) == 0
+    pins["view -s genome repeated"] = chip_smoke.sha256_file(out)
+    return pins
 
 
 def make_pins(d) -> dict:
     """The digests chip_smoke.py pins: its chromosome-scale synthesis
     through paffy_tpu's native library; paffy_tpu's view -s and
-    view -s -t, add_mismatches, and add_mismatches -a on that output, on
-    those files (its host routes); chip_smoke.tile_input made from that
-    output, and paffy_tpu's tile on it; paffy_tpu's shatter of in.paf
-    (which chip_smoke.chain_input writes itself) and pipeline_pins on it;
-    chip_smoke.host_phase through paffy_tpu's commands."""
+    view -s -t, view -a of chip_smoke.render_input, add_mismatches, and
+    add_mismatches -a on that output, on those files (its host routes);
+    chip_smoke.tile_input made from that output, and paffy_tpu's tile on
+    it; paffy_tpu's shatter of in.paf (which chip_smoke.chain_input
+    writes itself) and pipeline_pins on it; chip_smoke.host_phase through
+    paffy_tpu's commands."""
     os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
     fa, paf, w = smoke_files(d, True)
     pins = {"seqs.fa": chip_smoke.sha256_file(fa),
@@ -720,6 +730,12 @@ def make_pins(d) -> dict:
         assert ref_main(["view", "-i", paf, *flags, "-o", out, fa]) == 0
         pins[tag] = chip_smoke.sha256_file(out)
         print(tag, open(out, "rb").read().splitlines()[-1].decode())
+    rpaf, out = os.path.join(d, "render.paf"), os.path.join(d, "out.txt")
+    pathlib.Path(rpaf).write_bytes(chip_smoke.render_input(
+        pathlib.Path(paf).read_bytes(),
+        (chip_smoke.RENDER_SLICES - 1) * chip_smoke.RENDER_SLICE_BYTES))
+    assert ref_main(["view", "-a", "-i", rpaf, fa, "-o", out]) == 0
+    pins["view -a"] = chip_smoke.sha256_file(out)
     am, tpaf = os.path.join(d, "am.paf"), os.path.join(d, "tile.paf")
     runs = {"add_mismatches": (["add_mismatches", "-i", paf, fa], am),
             "add_mismatches -a": (["add_mismatches", "-a", "-i", am],
@@ -785,7 +801,8 @@ def test_pins_are_digests():
         "add_mismatches -a", "tile.paf", "tile", "chain.paf", "chain",
         "pipeline add_mismatches", "pipeline chain", "pipeline tile",
         "pipeline trim", "run_pipeline", *HOST_PINS, "genome.fa",
-        "genome.paf", "run_pipeline genome"}
+        "genome.paf", "run_pipeline genome", "view -a",
+        "view -s genome repeated"}
     for v in chip_smoke.PINS.values():
         assert len(v) == 64 and int(v, 16) >= 0
     assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()

@@ -6,6 +6,8 @@ paffy_tpu's bytes at each step (on a workload and on chip_smoke's chain
 input at a small scale); the sharding helpers are paffy_tpu's; and without
 a device the pipeline raises before it encodes anything."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -84,8 +86,38 @@ def test_sharding_helpers_match_paffy_tpu():
     raw = pafio.parse_paf_text("q\t9\t0\t9\t+\tt\t9\t0\t9\t9\t9\t60\n")
     raw = pafio.parse_paf_data(bytes(pafio.serialize_paf_bytes(raw)),
                                parse_cigars=False)
-    with pytest.raises(ValueError):
+    with pytest.raises(AssertionError):
         runner.concat_tables([raw])
+
+
+def test_concat_tables_of_no_tables_is_paffy_tpus_empty():
+    got, want = runner.concat_tables([]), ref_runner.concat_tables([])
+    assert len(got) == 0 and got.raw_cg is None and want.raw_cg is None
+    for f in dataclasses.fields(want):
+        if f.name == "raw_cg":
+            continue
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        assert (a.dtype, a.shape, a.tolist()) == (b.dtype, b.shape,
+                                                  b.tolist()), f.name
+    assert serialized(got) == serialized(want, ref=True) == b""
+
+
+@pytest.mark.parametrize("raw_at", [0, 1], ids=["raw-first", "raw-second"])
+def test_concat_tables_rejects_raw_cigars_as_paffy_tpu(raw_at):
+    _, t, r = workload(8)
+    data = serialized(t)
+    tables = []
+    for mod, table in ((pafio, t), (ref_pafio, r)):
+        raw = mod.parse_paf_data(data, parse_cigars=False)
+        tables.append([raw, table] if raw_at == 0 else [table, raw])
+    errors = []
+    for fn, ts in ((runner.concat_tables, tables[0]),
+                   (ref_runner.concat_tables, tables[1])):
+        with pytest.raises(AssertionError) as e:
+            fn(ts)
+        errors.append(str(e.value))
+    assert errors[0] == errors[1] == \
+        "concat_tables requires parsed-cigar tables"
 
 
 def run_chain_of_commands(d, fa, src):
