@@ -58,7 +58,10 @@ Phases (any failure exits non-zero and prints no result line):
               must equal its plain version on the card and the C sweep
               native.tile_sweep, and span more than one level; K5 against
               both on its edge cases (k5_edge_cases) at their own tiles and
-              at K5_EDGE_TILE.
+              at K5_EDGE_TILE; then tile_input and the edge cases again
+              with tile_device.HIST_BUDGET cut so that each sweep runs in
+              several batches (k5_batched_check), their counts carried
+              between the launches.
 8. chain   -- the chain input: the port's ``shatter`` of in.paf (one
               gapless record per M run, 216,159 records), pinned, and equal
               to chain_input's bytes, made from the synthesis;
@@ -130,6 +133,14 @@ Phases (any failure exits non-zero and prints no result line):
               ``view -s`` of genome.paf's lines repeated (repeat_lines)
               past BIG_BATCHES - 1 batches of the default BATCH_BYTES,
               pinned, one K1 launch a batch, BIG_BATCHES or more.
+   deep tile -- ``tile`` on deep_tile_input, made on the genome: the
+              gapless records of DEEP_GENOMES target genomes on its query
+              contigs and DEEP_LOCI repeat loci under DEEP_STACK records
+              each (1,367,652 records), pinned, its output pinned to
+              paffy_tpu's tile; K5's histogram rows pass 2 x HIST_BUDGET,
+              so it launches once per batch, DEEP_BATCHES or more; then
+              K5 alone on its arguments against native.tile_sweep, with
+              its plan, walks and medians timed apart, beside its bound.
 10. mesh   -- column_counts_multichip on in.paf over a (1,1) mesh of the
               first card, then over 8 slots filled round robin from the
               cards present as (4,2), (8,1) and (2,4) (all cuda:0 on one
@@ -213,8 +224,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 # of its add_mismatches, chain, tile and trim one after another from it,
 # and of its run_pipeline on it; of host_phase's outputs through
 # paffy_tpu's commands; of its view -a of render_input(in.paf); of the
-# many-contig genome (build_genome), of paffy_tpu's run_pipeline on it and
-# of its view -s of genome.paf repeated (repeat_lines); made by
+# many-contig genome (build_genome), of paffy_tpu's run_pipeline on it, of
+# its view -s of genome.paf repeated (repeat_lines), and of the deep tile
+# input made on it (deep_tile_input) and paffy_tpu's tile on it; made by
 # tests/test_torch_host.py --pins
 PINS = {
     "seqs.fa": "5e4d5d8787566cbba4677b110e206d3355fdabe151b45a21851ab56c9f6b9c80",
@@ -251,6 +263,8 @@ PINS = {
     "run_pipeline genome": "17523d674f25a24bf0cb425cb62ed65db436b39ae27414a682fd08ecae08d7e7",
     "view -a": "cfe62ec55131efaecb84060535922cabb5689ad688a5c8feb0d2c4b04a611cdd",
     "view -s genome repeated": "76172a928c822731419a34e6c7d9e800aced8365015708f8b522c5debf4eae8b",
+    "deep.paf": "4cb9306a522f27c4b54716b980d540b78d11f2b5169f7bdb2dddbea3ed7d77e0",
+    "deep tile": "96b684268e95c7bc6e9dae23b8a9cab7ce08a0912b2a69b00cb3e85d53691d67",
 }
 
 # the many-contig genome, see build_genome: its contig count, the factor
@@ -281,6 +295,19 @@ K6_SWEEP_K = (8, 16, 32, 64)   # the timing sweep of K6's K and block
 K6_SWEEP_THREADS = (256, 384, 512)
 K5_TILES = (4096, 8192, 16384, 32768, 65536)   # the timing sweep of K5's tile
 K5_EDGE_TILE = 7               # K5's edge cases also run at this tile
+# the deep tile input, see deep_tile_input: its target genomes, the shift
+# of the records of genomes 1.. on the query, its repeat loci, the records
+# stacked on each, their query span and how far their starts stray; its
+# K5 sweep must take DEEP_BATCHES launches or more
+DEEP_GENOMES = 4
+DEEP_SHIFT = 1_000
+DEEP_LOCI = 200
+DEEP_STACK = 2_500
+DEEP_LEN = 300
+DEEP_JITTER = 30
+DEEP_BATCHES = 3
+# the small-budget K5 checks cut each sweep into about this many batches
+K5_SMALL_BATCHES = 6
 # K6's operation bound: 32-bit integer instructions per candidate of the
 # windows (int64 compare of the slot, tgap and its two bounds, qgap + tgap,
 # the zero test, the gap cost's multiply-add, g < score, the value, the
@@ -757,22 +784,103 @@ def tile_input(encoded: bytes, seed=SEED) -> bytes:
     return "".join(out).encode("latin-1")
 
 
-def chain_input(w, seq_len=SEQ_LEN) -> bytes:
-    """The chain input: one gapless record per M run of the synthesis
-    ``w`` (build_files), in order, byte for byte paffy_tpu's ``shatter``
-    of in.paf: '-' records walk down the query, the run length in fields
-    10-11, MAPQ 60, the parent's AS, s1:i:0 and cg:Z:<len>M."""
+def gapless_records(w):
+    """(qstart, strand, tstart, length, AS) arrays of the gapless records
+    of the synthesis ``w`` (build_files), one per M run, in order: '-'
+    records walk down the query, and each has its parent's AS."""
     runs, rev = w["runs"], w["rev"]
-    qname, tname = w["names"]
     qs = np.where(rev, w["qpos"] - runs + 1, w["qpos"])
     score = 2 * np.bincount(w["run_rec"], weights=runs).astype(np.int64)
-    cols = zip(qs.tolist(), np.where(rev, "-", "+").tolist(),
-               w["tpos"].tolist(), runs.tolist(),
-               score[w["run_rec"]].tolist())
+    return (qs, np.where(rev, "-", "+"), w["tpos"], runs,
+            score[w["run_rec"]])
+
+
+def chain_input(w, seq_len=SEQ_LEN) -> bytes:
+    """The chain input: one gapless record per M run of the synthesis
+    ``w`` (build_files, gapless_records), in order, byte for byte
+    paffy_tpu's ``shatter`` of in.paf: the run length in fields 10-11,
+    MAPQ 60, the parent's AS, s1:i:0 and cg:Z:<len>M."""
+    qname, tname = w["names"]
+    cols = zip(*(a.tolist() for a in gapless_records(w)))
     return "".join(
         f"{qname}\t{seq_len}\t{q}\t{q + n}\t{s}\t{tname}\t{seq_len}\t{t}\t"
         f"{t + n}\t{n}\t{n}\t60\tAS:i:{a}\ts1:i:0\tcg:Z:{n}M\n"
         for q, s, t, n, a in cols).encode()
+
+
+def deep_tile_input(works, lens, loci=DEEP_LOCI, stack=DEEP_STACK,
+                    seed=SEED) -> bytes:
+    """The deep tile input over build_genome's genome (``works``, its
+    synth_workload dicts, and ``lens``, its contig lengths): the gapless
+    records of DEEP_GENOMES target genomes aligned to its query contigs,
+    then ``loci`` repeat loci, each under a stack of ``stack`` records.
+
+    Genome 0's records are genome.paf's.  Genome g's (target contigs
+    g<g>.t_chr..) are the same records, each moved along its query
+    contig by a seeded offset in [-DEEP_SHIFT, DEEP_SHIFT] (clamped to
+    the contig), with its AS drawn anew.  A locus is a seeded position
+    on a query contig, drawn by length; each record of its stack spans
+    DEEP_LEN +- DEEP_LEN // 6 query bases from within DEEP_JITTER of it,
+    aligned to a seeded place on a target contig of a seeded genome,
+    gapless or with one insertion or deletion of 1-8 bases, on a seeded
+    strand.  Every AS drawn is uniform up to genome.paf's largest, so
+    the best-first order interleaves the stacks with each other and with
+    the genomes' records."""
+    rng = np.random.default_rng(seed + 29)
+    lens = np.asarray(lens, dtype=np.int64)
+    cols = [gapless_records(w) for w in works]
+    contig = np.repeat(np.arange(len(works)), [len(c[0]) for c in cols])
+    qs, strand, ts, n, score = (np.concatenate([c[k] for c in cols])
+                                for k in range(5))
+    top = int(score.max())
+    qname = np.array([w["names"][0] for w in works])
+    tname = np.array([[f"g{g}." * (g > 0) + w["names"][1] for w in works]
+                      for g in range(DEEP_GENOMES)])
+    out = []
+
+    def emit(c, q, q_len, s, g, tc, t, t_len, n_match, block, a, cigar):
+        out.extend(
+            f"{qn}\t{ql}\t{x}\t{x + m}\t{sd}\t{tn}\t{tl}\t{y}\t{y + tm}\t"
+            f"{nm}\t{bl}\t60\tAS:i:{sc}\ts1:i:0\tcg:Z:{cg}\n"
+            for qn, ql, x, m, sd, tn, tl, y, tm, nm, bl, sc, cg in zip(
+                qname[c].tolist(), lens[c].tolist(), q.tolist(),
+                q_len.tolist(), s.tolist(), tname[g, tc].tolist(),
+                lens[tc].tolist(), t.tolist(), t_len.tolist(),
+                n_match.tolist(), block.tolist(), a.tolist(), cigar))
+
+    for g in range(DEEP_GENOMES):
+        q, a = qs, score
+        if g:
+            q = np.clip(qs + rng.integers(-DEEP_SHIFT, DEEP_SHIFT + 1,
+                                          len(qs)), 0, lens[contig] - n)
+            a = rng.integers(0, top + 1, len(qs))
+        emit(contig, q, n, strand, np.full(len(qs), g), contig, ts, n, n, n,
+             a, [f"{m}M" for m in n.tolist()])
+    # the stacks
+    k, wide = loci * stack, DEEP_LEN // 6
+    at = rng.choice(len(lens), loci, p=lens / lens.sum())
+    locus = rng.integers(DEEP_JITTER, lens[at] - DEEP_LEN - wide - DEEP_JITTER)
+    c = np.repeat(at, stack)
+    q_len = rng.integers(DEEP_LEN - wide, DEEP_LEN + wide + 1, k)
+    q = np.repeat(locus, stack) + rng.integers(-DEEP_JITTER, DEEP_JITTER + 1,
+                                                k)
+    kind = rng.integers(0, 3, k)          # gapless, insertion, deletion
+    gap = rng.integers(1, 9, k)
+    m1 = rng.integers(q_len // 4, 3 * q_len // 4)
+    m2 = np.where(kind == 1, q_len - gap - m1, q_len - m1)
+    t_len = np.where(kind == 2, q_len + gap, m1 + m2)
+    g = rng.integers(0, DEEP_GENOMES, k)
+    tc = rng.integers(0, len(lens), k)
+    t = rng.integers(0, lens[tc] - t_len)
+    s = np.where(rng.integers(0, 2, k) == 1, "-", "+")
+    a = rng.integers(0, top + 1, k)
+    cigar = [f"{ln}M" if kd == 0 else f"{x}M{gp}{'ID'[kd - 1]}{y}M"
+             for kd, ln, x, gp, y in zip(kind.tolist(), q_len.tolist(),
+                                         m1.tolist(), gap.tolist(),
+                                         m2.tolist())]
+    emit(c, q, q_len, s, g, tc, t, t_len, m1 + m2,
+         m1 + m2 + np.where(kind > 0, gap, 0), a, cigar)
+    return "".join(out).encode()
 
 
 def record_bed(paf: bytes) -> str:
@@ -1434,6 +1542,31 @@ def k5_check(torch, devconf, native, tile_device, host, cap, tile,
     return args, lv_h, err
 
 
+def k5_batched_check(torch, devconf, native, kernels, tile_device, host,
+                     cap, tile):
+    """k5_check with tile_device.HIST_BUDGET cut, for the call, to about
+    1 / K5_SMALL_BATCHES of the sweep's rows (never below its widest row),
+    so that the sweep runs in several batches: one launch per batch, 2 or
+    more.  Returns (batches, budget in bytes, max abs error)."""
+    dev = devconf.device()
+    plan = tile_device.tile_plan(*(devconf.upload(a, dev) for a in host), cap,
+                                 tile)
+    widest = int(torch.diff(plan.row_off).max())
+    budget = 4 * max(widest, -(-plan.n_bins // K5_SMALL_BATCHES))
+    saved, tile_device.HIST_BUDGET = tile_device.HIST_BUDGET, budget
+    try:
+        before = kernels.LAUNCHES["tile_sweep"]
+        *_, err = k5_check(torch, devconf, native, tile_device, host, cap,
+                           tile)
+        batches = kernels.LAUNCHES["tile_sweep"] - before
+    finally:
+        tile_device.HIST_BUDGET = saved
+    if batches < 2:
+        raise AssertionError(f"K5 at a budget of {budget} bytes took "
+                             f"{batches} batch(es), not several")
+    return batches, budget, err
+
+
 def k6_check(devconf, native, chain, chain_device, groups, costs,
              plain=True, k=None):
     """K6 on one launch's ``groups`` (both strand sets, or an edge case),
@@ -1539,6 +1672,44 @@ def kernel_overlap(trace_path, kernel):
     streams = sorted({e.get("args", {}).get("stream", e.get("tid"))
                       for e in events}, key=str)
     return len(spans), len(overlapping), most, streams
+
+
+@contextlib.contextmanager
+def entry_ms(torch, kernels, names):
+    """Inside the block, kernels.load() gives the kernel library with each
+    C entry point of ``names`` timed by CUDA events recorded on the current
+    stream around its call.  Yields {name: [milliseconds of each call, in
+    the order of the calls]}, filled when the block ends.  Events are
+    recorded on the stream itself, so no call goes unseen, as a profiler's
+    trace can let one go."""
+    lib, load = kernels.load(), kernels.load
+    marks = {name: [] for name in names}
+
+    class Timed:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name not in marks:
+                return fn
+
+            def call(*args):
+                a = torch.cuda.Event(enable_timing=True)
+                b = torch.cuda.Event(enable_timing=True)
+                a.record()
+                rc = fn(*args)
+                b.record()
+                marks[name].append((a, b))
+                return rc
+            return call
+
+    ms = {name: [] for name in names}
+    kernels.load = Timed
+    try:
+        yield ms
+        torch.cuda.synchronize()
+    finally:
+        kernels.load = load
+    for name, pairs in marks.items():
+        ms[name] += [a.elapsed_time(b) for a, b in pairs]
 
 
 def run(torch) -> dict:
@@ -1808,7 +1979,7 @@ def run(torch) -> dict:
             f"bases, levels {levels_seen.tolist()}")
         plan = tile_device.tile_plan(*k5_args)
         log(f"K5 plan on tile_input at tile {tile_device.TILE}: "
-            f"{plan.tile_ids.numel()} tiles, {plan.pair_rec.numel()} (tile, "
+            f"{plan.tile_ids.numel()} tiles, {plan.pair_pos.numel()} (tile, "
             f"record) pairs, histogram rows {4 * plan.n_bins} bytes")
         for label, (*host, cap, tl) in k5_edge_cases().items():
             for at in (tl, K5_EDGE_TILE):
@@ -1819,9 +1990,21 @@ def run(torch) -> dict:
                     *(devconf.upload(a, dev) for a in host), cap, at)
                 log(f"ok: K5 == plain == C sweep on its edge case {label} at "
                     f"tile {at} (cap {cap}, {len(host[2]) - 1} records, "
-                    f"{len(host[3])} intervals, {plan.pair_rec.numel()} "
+                    f"{len(host[3])} intervals, {plan.pair_pos.numel()} "
                     f"(tile, record) pairs over {plan.tile_ids.numel()} "
                     f"tiles)")
+        # the same in several batches, the counts carried between them
+        small = [("tile_input", k5_host, SATURATION, tile_device.TILE)]
+        small += [(label, host, cap, at)
+                  for label, (*host, cap, tl) in k5_edge_cases().items()
+                  for at in (tl, K5_EDGE_TILE)]
+        for label, host, cap, at in small:
+            batches, budget, err = k5_batched_check(
+                torch, devconf, native, kernels, tile_device, host, cap, at)
+            k5_err = max(k5_err, err)
+            log(f"ok: K5 == plain == C sweep on {label} at tile {at} in "
+                f"{batches} batches (HIST_BUDGET cut to {budget} bytes), "
+                f"max abs error {err}")
 
         log(f"== chain (t+{time.perf_counter() - t_start:.1f} s)")
         # the chain input is the port's shatter of in.paf; chain_input
@@ -1892,7 +2075,7 @@ def run(torch) -> dict:
         log(f"ok: K5 == plain (on the host) == C sweep on the pipeline's "
             f"tile input, {len(tpc)} records ({time.perf_counter() - t0:.1f}"
             f" s); at tile {tile_device.TILE}: {plan.tile_ids.numel()} "
-            f"tiles, {plan.pair_rec.numel()} (tile, record) pairs, "
+            f"tiles, {plan.pair_pos.numel()} (tile, record) pairs, "
             f"histogram rows {4 * plan.n_bins} bytes")
         del tpc, plan
         with open(cpaf, "rb") as fh:
@@ -2046,7 +2229,7 @@ def run(torch) -> dict:
         log(f"== genome (t+{time.perf_counter() - t_start:.1f} s)")
         gd = os.path.join(d, "genome")
         os.makedirs(gd)
-        gfa, gpaf, glens, _ = build_genome(gd, native)
+        gfa, gpaf, glens, gworks = build_genome(gd, native)
         expect_pin("genome.fa", gfa)
         expect_pin("genome.paf", gpaf)
         with open(gpaf, "rb") as fh:
@@ -2169,6 +2352,88 @@ def run(torch) -> dict:
         log(f"{tag}: {copies} copies of genome.paf, {os.path.getsize(big)} "
             f"bytes, {copies * len(tg)} records, in {n_big} batches: "
             f"{walls[tag]:.4f} s wall; {gpu}")
+        os.remove(big)
+
+        log(f"== deep tile (t+{time.perf_counter() - t_start:.1f} s)")
+        t0 = time.perf_counter()
+        dpaf = os.path.join(gd, "deep.paf")
+        with open(dpaf, "wb") as fh:
+            fh.write(deep_tile_input(gworks, glens))
+        deep_synth_s = time.perf_counter() - t0
+        expect_pin("deep.paf", dpaf)
+        tag = "deep tile"
+        drive(tag, ["tile", "-i", dpaf], os.path.join(gd, "deep_tiled.paf"))
+        n5 = launches[tag]["tile_sweep"]
+        expect_equal(f"{tag}: {DEEP_BATCHES} or more K5 launches ({n5})",
+                     n5 >= DEEP_BATCHES, True)
+        # its K5 alone: the plan's rows and batches, each batch's walk and
+        # medians timed by CUDA events, the levels against the C sweep
+        with open(dpaf, "rb") as fh:
+            td = pafio.parse_paf_data(fh.read())
+        *d_sweep, d_len = tile.sweep_arguments(td)
+        d_host = (tile.tile_sort_order(td), *d_sweep)
+        d_args = [devconf.upload(a, dev) for a in d_host]
+        plan = tile_device.tile_plan(*d_args)
+        n_batches, rows = len(plan.batch_off) - 1, 4 * plan.n_bins
+        expect_equal(f"{tag}: histogram rows ({rows} bytes) of 2 x "
+                     f"HIST_BUDGET or more",
+                     rows >= 2 * tile_device.HIST_BUDGET, True)
+        expect_equal(f"{tag}: one K5 launch per batch", n5, n_batches)
+        with entry_ms(torch, kernels,
+                      ("paffy_tile_walk", "paffy_tile_median")) as split:
+            lv = tile_device.tile_sweep(*d_args)
+        walk_ms, median_ms = (split["paffy_tile_walk"],
+                              split["paffy_tile_median"])
+        expect_equal(f"{tag}: K5's walks and medians, one each a batch",
+                     (len(walk_ms), len(median_ms)), (n_batches, n_batches))
+        lv_c = np.full(len(td), 32767, dtype=np.int64)
+        native.tile_sweep(*d_host, np.zeros(d_len, dtype=np.uint16),
+                          SATURATION, lv_c)
+        deep_err = int(np.abs(devconf.to_host_i64(lv) - lv_c).max())
+        expect_equal(f"{tag}: K5's levels == native.tile_sweep's", deep_err, 0)
+        k5_err = max(k5_err, deep_err)
+        deep_ms = cuda_ms(torch, lambda: tile_device.tile_sweep(*d_args),
+                          reps=3, warm=1)
+        deep_plan_ms = cuda_ms(torch, lambda: tile_device.tile_plan(*d_args),
+                               reps=3, warm=1)
+        # the bound: the function's bytes, and with the carried counts (2
+        # bytes read and 2 written per position of a tile for each batch
+        # after its first that has pairs of it)
+        pair_batch = torch.searchsorted(
+            torch.tensor(plan.batch_off[1:-1], device=dev), plan.pair_pos,
+            right=True)
+        pair_tile = torch.repeat_interleave(
+            torch.arange(plan.tile_ids.numel(), device=dev),
+            torch.diff(plan.pair_off))
+        tile_batches = torch.unique(pair_tile * n_batches + pair_batch).numel()
+        carried = 4 * tile_device.TILE * (tile_batches
+                                          - plan.tile_ids.numel())
+        d_bytes = 16 * len(d_host[3]) + 32 * len(td)
+        deep_bound = {
+            "bytes": d_bytes, "carried_bytes": carried,
+            "bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_with_carry": (d_bytes + carried) / HBM_BYTES_PER_S * 1e3}
+        split = ", ".join(f"{k} {v:.4f}" for k, v in phase_split[tag].items())
+        log(f"{tag}: {len(td)} records ({DEEP_GENOMES} genomes' gapless "
+            f"records and {DEEP_LOCI} stacks of {DEEP_STACK}), "
+            f"{len(d_host[3])} intervals, made in {deep_synth_s:.4f} s; "
+            f"histogram rows {rows} bytes ({rows / 2**30:.4f} GiB) in "
+            f"{n_batches} batches {plan.batch_off}; {walls[tag]:.4f} s wall "
+            f"({split}); {n5} K5 launches; {gpu}")
+        log(f"{tag} K5 alone: {deep_ms:.4f} ms one call (plan inside), plan "
+            f"{deep_plan_ms:.4f} ms, walks {walk_ms} ms, medians {median_ms} "
+            f"ms; {plan.tile_ids.numel()} tiles, {plan.pair_pos.numel()} "
+            f"pairs, {tile_batches - plan.tile_ids.numel()} carried tile "
+            f"counts; bound {deep_bound['bound_ms']:.4f} ms by bytes "
+            f"({d_bytes}), {deep_bound['bound_ms_with_carry']:.4f} ms with "
+            f"the carried counts ({carried} bytes); max abs error against "
+            f"native.tile_sweep {deep_err}")
+        deep = {"records": len(td), "rows_bytes": rows, "batches": n_batches,
+                "launches": n5, "wall_s": walls[tag], "ms": deep_ms,
+                "plan_ms": deep_plan_ms, "walk_ms": walk_ms,
+                "median_ms": median_ms, **deep_bound,
+                "max_abs_err_vs_c": deep_err}
+        del td, d_args, lv, plan, pair_batch, pair_tile
         shutil.rmtree(gd)
         del tg
 
@@ -2449,7 +2714,8 @@ def run(torch) -> dict:
     extra = {name: {"c_pass": what, "c_pass_ms": c_ms,
                     "c_pass_threads": c_threads}
              for name, (what, c_ms) in c_pass.items()}
-    extra |= {"tile_sweep": {"sweep_ms": sweeps["tile_sweep"]},
+    extra |= {"tile_sweep": {"sweep_ms": sweeps["tile_sweep"],
+                             "deep_tile": deep},
              "chain_dp": {"plain_records": k6_plain_records,
                           "ms_at_plain_records": k6_prefix_ms,
                           "sweep_ms": sweeps["chain_dp"]},

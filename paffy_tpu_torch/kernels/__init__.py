@@ -28,12 +28,16 @@ raises on non-zero):
                              const i64* table, i64 n_pieces,
                              const i64* first_dest, u8* new_ops,
                              i64* new_lens, cudaStream_t s)
-    int paffy_tile_sweep(int dev, i64 n_tiles, const i64* tile_ids,
-                         const i64* pair_off, const i64* pair_rec,
-                         const i64* arena_off, const i64* run_off,
-                         const i64* istart, const i64* iend,
-                         const i64* row_off, u32* hist, i64 n_records,
-                         i64 cap, i64 tile, i64* levels, cudaStream_t s)
+    int paffy_tile_walk(int dev, i64 n_tiles, const i64* tile_ids,
+                        const i64* pair_off, const i64* pair_pos,
+                        const i64* order, const i64* arena_off,
+                        const i64* run_off, const i64* istart,
+                        const i64* iend, const i64* row_off, u32* hist,
+                        i64 hist_base, i64 pos_lo, i64 pos_hi, u16* carry,
+                        i64 cap, i64 tile, cudaStream_t s)
+    int paffy_tile_median(int dev, i64 pos_lo, i64 pos_hi, const i64* order,
+                          const i64* row_off, const u32* hist,
+                          i64 hist_base, i64* levels, cudaStream_t s)
     int paffy_chain_dp(int dev, i64 n_groups, const i64* goff, const i64* qs,
                        const i64* ts, const i64* score, const i64* qe_s,
                        const i64* te_s, const i64* idx_s, const i64* lo,
@@ -177,16 +181,18 @@ def load() -> ctypes.CDLL:
             lib.paffy_run_counts.argtypes = [dev, vp, i64, vp, i64, vp, vp]
             lib.paffy_run_fill_cigar.argtypes = [dev, vp, i64, vp, i64, vp,
                                                  vp, vp, vp]
-            lib.paffy_tile_sweep.argtypes = [dev, i64, *[vp] * 9, i64, i64,
-                                             i64, vp, vp]
+            lib.paffy_tile_walk.argtypes = [dev, i64, *[vp] * 10, i64, i64,
+                                            i64, vp, i64, i64, vp]
+            lib.paffy_tile_median.argtypes = [dev, i64, i64, vp, vp, vp, i64,
+                                              vp, vp]
             lib.paffy_chain_dp.argtypes = [dev, i64, *[vp] * 10, *[i64] * 6,
                                            vp, vp, vp, vp]
             lib.paffy_group_stats.argtypes = [dev, vp, i64, vp, i64, vp, vp,
                                               vp, vp]
             for fn in (lib.paffy_build_ext, lib.paffy_piece_counts,
                        lib.paffy_run_counts, lib.paffy_run_fill_cigar,
-                       lib.paffy_tile_sweep, lib.paffy_chain_dp,
-                       lib.paffy_group_stats):
+                       lib.paffy_tile_walk, lib.paffy_tile_median,
+                       lib.paffy_chain_dp, lib.paffy_group_stats):
                 fn.restype = ctypes.c_int
             lib.paffy_error_string.argtypes = [ctypes.c_int]
             lib.paffy_error_string.restype = ctypes.c_char_p

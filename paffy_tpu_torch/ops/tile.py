@@ -16,9 +16,11 @@ form (``run_off``, ``istart``, ``iend`` from ``match_intervals``) and each
 record's offset into one position space with each distinct query
 sequence's positions end to end, the arguments of the C sweep
 (native.tile_sweep) but its arena: the kernel keeps its counts on the
-chip.  On a mesh (``assign_tile_levels_sharded``), the distinct query
-sequences are cut into blocks over the mesh's data rows, each with its own
-position space.
+chip.  However deep the records stack, the sweep stays on the device: it
+runs in batches of records whose histogram rows fit
+tile_device.HIST_BUDGET, one launch each.  On a mesh
+(``assign_tile_levels_sharded``), the distinct query sequences are cut
+into blocks over the mesh's data rows, each with its own position space.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions on a GPU, at
 small shapes and at the edge cases of K1 (chip_smoke.k1_edge_cases, also
 held against the C loop on the CPU by tests/test_torch_compare.py), K4
-(chip_smoke.k4_edge_cases), K5 (chip_smoke.k5_edge_cases, at two tiles)
+(chip_smoke.k4_edge_cases), K5 (chip_smoke.k5_edge_cases, at two tiles,
+and in several batches of rows with its counts carried between them)
 and K6 (chip_smoke.k6_edge_cases, at two counts of recent candidates); K4,
 K5 and K6 also against the C passes, K7 with its tables cut into seq
 ranges, a
@@ -275,6 +276,25 @@ def test_tile_kernel_edge_cases(cuda, label, tile):
     *_, err = chip_smoke.k5_check(torch, devconf, native, tile_device, host,
                                   cap, tile)
     assert err == 0
+
+
+@pytest.mark.parametrize("tile", [64, tile_device.TILE])
+def test_tile_kernel_carries_counts_between_batches(cuda, tile):
+    # 40 records over the same 3,000 bases of one sequence, many intervals
+    # each: every tile's counts cross every batch
+    rng = np.random.default_rng(tile)
+    *args, total = tile_case(rng, 1, 40, 3_000, 200)
+    batches, budget, err = chip_smoke.k5_batched_check(
+        torch, devconf, native, kernels, tile_device, args,
+        tile_device.SATURATION, tile)
+    torch.cuda.synchronize()
+    assert err == 0 and batches >= 3 and budget < tile_device.HIST_BUDGET
+    got = tile_device.tile_sweep(*(devconf.upload(a, cuda) for a in args),
+                                 tile=tile)
+    np.testing.assert_array_equal(devconf.to_host_i64(got), tile_device.
+                                  tile_sweep_tiled_plain(*(torch.from_numpy(a)
+                                                           for a in args),
+                                                         tile=tile).numpy())
 
 
 def test_run_and_tile_wrappers_refuse_bad_inputs(cuda):

@@ -6,9 +6,10 @@ synthesis at a small scale through both packages' native libraries.
 
 Run as a script, this file prints the digests that chip_smoke.py pins
 (chromosome scale, a few minutes and ~3 GB of memory; ``genome`` after
-``--pins``: only those of the many-contig genome):
+``--pins``: only those of the many-contig genome; ``deep``: only those of
+the deep tile input made on it):
 
-    PAFFY_TPU_PLATFORM=cpu python tests/test_torch_host.py --pins [genome]
+    PAFFY_TPU_PLATFORM=cpu python tests/test_torch_host.py --pins [genome|deep]
 """
 
 import dataclasses
@@ -686,16 +687,32 @@ def pipeline_pins(d, fa, chain_paf) -> dict:
     return pins
 
 
-def genome_pins(d) -> dict:
+def deep_pins(d, works, lens) -> dict:
+    """chip_smoke.deep_tile_input on build_genome's genome and paffy_tpu's
+    tile on it, as digests; prints the seconds the tile took."""
+    import time
+    paf, out = os.path.join(d, "deep.paf"), os.path.join(d, "deep_tiled.paf")
+    pathlib.Path(paf).write_bytes(chip_smoke.deep_tile_input(works, lens))
+    t0 = time.perf_counter()
+    assert ref_main(["tile", "-i", paf, "-o", out]) == 0
+    print(f"paffy_tpu tile of deep.paf: {time.perf_counter() - t0:.1f} s "
+          f"on the host")
+    return {"deep.paf": chip_smoke.sha256_file(paf),
+            "deep tile": chip_smoke.sha256_file(out)}
+
+
+def genome_pins(d, deep_only=False) -> dict:
     """chip_smoke.build_genome at full size through paffy_tpu's native
     library, paffy_tpu's run_pipeline on it (one shard, its own worker
-    threads), and its view -s of genome.paf's lines repeated
-    (chip_smoke.repeat_lines) past BIG_BATCHES - 1 full batches, as
-    digests."""
+    threads), its view -s of genome.paf's lines repeated
+    (chip_smoke.repeat_lines) past BIG_BATCHES - 1 full batches, and
+    deep_pins, as digests; only deep_pins when ``deep_only``."""
     from paffy_tpu.core.fasta import read_fasta
     from paffy_tpu.parallel.runner import run_pipeline
     os.environ["PAFFY_TPU_PLATFORM"] = "cpu"
-    fa, paf, _, _ = chip_smoke.build_genome(d, ref_native)
+    fa, paf, lens, works = chip_smoke.build_genome(d, ref_native)
+    if deep_only:
+        return deep_pins(d, works, lens)
     t = ref_pafio.parse_paf_data(pathlib.Path(paf).read_bytes())
     out = os.path.join(d, "run_pipeline_genome.paf")
     pathlib.Path(out).write_bytes(bytes(ref_pafio.serialize_paf_bytes(
@@ -709,6 +726,7 @@ def genome_pins(d) -> dict:
     out = os.path.join(d, "big_view.txt")
     assert ref_main(["view", "-i", big, "-s", fa, "-o", out]) == 0
     pins["view -s genome repeated"] = chip_smoke.sha256_file(out)
+    pins.update(deep_pins(d, works, lens))
     return pins
 
 
@@ -802,7 +820,7 @@ def test_pins_are_digests():
         "pipeline add_mismatches", "pipeline chain", "pipeline tile",
         "pipeline trim", "run_pipeline", *HOST_PINS, "genome.fa",
         "genome.paf", "run_pipeline genome", "view -a",
-        "view -s genome repeated"}
+        "view -s genome repeated", "deep.paf", "deep tile"}
     for v in chip_smoke.PINS.values():
         assert len(v) == 64 and int(v, 16) >= 0
     assert hashlib.sha256(b"").hexdigest() not in chip_smoke.PINS.values()
@@ -811,6 +829,9 @@ def test_pins_are_digests():
 if __name__ == "__main__" and "--pins" in sys.argv:
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        pins = (genome_pins if "genome" in sys.argv else make_pins)(tmp)
+        if "deep" in sys.argv:
+            pins = genome_pins(tmp, deep_only=True)
+        else:
+            pins = (genome_pins if "genome" in sys.argv else make_pins)(tmp)
         for k, v in pins.items():
             print(f'    "{k}": "{v}",')

@@ -7,10 +7,13 @@ the C sweep with the same cap), and raises on inconsistent query lengths;
 the plain emulation of the CUDA kernel's decomposition (per-tile counts,
 merged histogram rows, then the medians) equals the sequential plain
 sweep, paffy_tpu's levels and the C sweep at tiles of 1, 7, 64 and 4096
-positions, on chip_smoke.k5_edge_cases and at caps 1, 2 and 5; the tile
-plan covers each record's span and bounds its counts; the command gives
-the same bytes and exit codes, including the walk-violation abort that
-writes nothing."""
+positions, on chip_smoke.k5_edge_cases and at caps 1, 2 and 5, and, on
+records stacked deep, with HIST_BUDGET cut to a few KB so that the sweep
+runs in 1, 2 or many batches with its counts carried between them; the
+tile plan covers each record's span, bounds its counts and cuts its rows
+into batches that fit the budget; chip_smoke.deep_tile_input at a small
+size tiles as paffy_tpu tiles it; the command gives the same bytes and
+exit codes, including the walk-violation abort that writes nothing."""
 
 import numpy as np
 import pytest
@@ -196,15 +199,13 @@ def test_tile_plan_covers_spans_and_bounds_counts(tile_size):
     order, arena_off, run_off, istart, iend = host
     plan = tile_device.tile_plan(*(torch.from_numpy(a) for a in host), cap,
                                  tile_size)
-    pair_off, pair_rec = plan.pair_off.tolist(), plan.pair_rec.tolist()
-    rank = {r: k for k, r in enumerate(order.tolist())}
+    pair_off, pair_pos = plan.pair_off.tolist(), plan.pair_pos.tolist()
     seen = {}
     for b, t in enumerate(plan.tile_ids.tolist()):
-        recs = pair_rec[pair_off[b]: pair_off[b + 1]]
-        assert recs and [rank[r] for r in recs] == sorted(rank[r]
-                                                          for r in recs)
-        for r in recs:
-            seen.setdefault(r, []).append(t)
+        at = pair_pos[pair_off[b]: pair_off[b + 1]]
+        assert at and at == sorted(set(at))
+        for k in at:
+            seen.setdefault(int(order[k]), []).append(t)
     for r in order.tolist():
         a, e = run_off[r], run_off[r + 1]
         lo = arena_off[r] + (istart[a] if e > a else 0)
@@ -212,25 +213,28 @@ def test_tile_plan_covers_spans_and_bounds_counts(tile_size):
         want = list(range(lo // tile_size, (hi - 1) // tile_size + 1)) \
             if hi > lo else []
         assert seen.get(r, []) == want
-    # the rows hold every count a record reaches (1 + the records before
-    # it covering a base) and are empty for records outside the order
+    # the rows, by processing position, hold every count a record reaches
+    # (1 + the records before it covering a base); records outside the
+    # order have none
     arena = torch.zeros(int(arena_off.max()) + int(iend.max()),
                         dtype=torch.int16)
     bins = torch.diff(plan.row_off)
-    for r in order.tolist():
+    assert bins.numel() == len(order)
+    for k, r in enumerate(order.tolist()):
         before = arena.clone()
         tile_device.tile_sweep_plain(torch.tensor([r]),
                                      *(torch.from_numpy(a) for a in host[1:]),
                                      cap, arena=arena)
         grew = arena != before
         if grew.any():
-            assert int(arena[grew].max()) <= int(bins[r])
-    outside = np.setdiff1d(np.arange(len(run_off) - 1), order)
-    assert len(outside) and (bins[outside] == 0).all()
+            assert int(arena[grew].max()) <= int(bins[k])
+    assert len(np.setdiff1d(np.arange(len(run_off) - 1), order))
     assert plan.n_bins == int(bins.sum())
+    assert (plan.batch_off, plan.batch_row) == ([0, len(order)],
+                                                [0, plan.n_bins])
 
 
-def test_tile_plan_refuses_bad_order_and_large_rows(monkeypatch):
+def test_tile_plan_refuses_bad_order_and_splits_large_rows(monkeypatch):
     *host, cap, _ = chip_smoke.k5_edge_cases(scale=0.05)[
         chip_smoke.K5_EDGE_LABELS[0]]
     args = [torch.from_numpy(a) for a in host]
@@ -238,10 +242,130 @@ def test_tile_plan_refuses_bad_order_and_large_rows(monkeypatch):
                 args[0] + len(host[2])):
         with pytest.raises(ValueError, match="distinct records"):
             tile_device.tile_plan(bad, *args[1:], cap)
-    plan = tile_device.tile_plan(*args, cap, 64)
-    monkeypatch.setattr(tile_device, "HIST_BUDGET", 4 * plan.n_bins - 1)
+    whole = tile_device.tile_plan(*args, cap, 64)
+    bins = torch.diff(whole.row_off)
+    widest = int(bins.max())
+    for budget in (4 * whole.n_bins - 1, 4 * whole.n_bins // 3, 4 * widest):
+        monkeypatch.setattr(tile_device, "HIST_BUDGET", budget)
+        plan = tile_device.tile_plan(*args, cap, 64)
+        # the same pairs and rows, cut into batches that cover the order
+        # in order, each one contiguous slice of rows within the budget
+        for a, b in zip(plan[:4], whole[:4]):
+            assert torch.equal(a, b)
+        cuts, rows = plan.batch_off, plan.batch_row
+        assert cuts[0] == 0 and cuts[-1] == len(host[0]) and len(cuts) > 2
+        assert all(a < b for a, b in zip(cuts, cuts[1:]))
+        assert rows == plan.row_off[cuts].tolist()
+        assert all(4 * (b - a) <= budget for a, b in zip(rows, rows[1:]))
+        # greedy: no batch could take the next record's row as well
+        assert all(4 * (plan.row_off[b + 1] - plan.row_off[a]) > budget
+                   for a, b in zip(cuts[:-2], cuts[1:-1]))
+    assert len(cuts) - 1 > 5
+    monkeypatch.setattr(tile_device, "HIST_BUDGET", 4 * widest - 1)
     with pytest.raises(ValueError, match="HIST_BUDGET"):
         tile_device.tile_plan(*args, cap, 64)
+
+
+# ------------------------------------------------- deep stacks, in batches
+
+def stack_text(seed, n_loci=3, stack=30, n_background=24, seq_len=1500):
+    """Stacks of records over a few loci of two query sequences: each
+    locus under ``stack`` records of about 120 bases, starting within 8
+    bases of it, a third of them with an insertion or deletion in their M
+    run and some in =/X ops; ``n_background`` shorter records elsewhere;
+    every AS drawn from one range, so the order interleaves the stacks."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    loci = [(f"s{rng.integers(0, 2)}", int(rng.integers(10, seq_len - 150)))
+            for _ in range(n_loci)]
+    for r in range(n_loci * stack + n_background):
+        if r < n_loci * stack:
+            qn, at = loci[r % n_loci]
+            qs = at + int(rng.integers(-8, 9))
+            ln = int(rng.integers(100, 141))
+        else:
+            qn, ln = f"s{rng.integers(0, 2)}", int(rng.integers(20, 300))
+            qs = int(rng.integers(0, seq_len - ln))
+        kind, gap = int(rng.integers(0, 4)), int(rng.integers(1, 6))
+        m1 = int(rng.integers(ln // 4, 3 * ln // 4))
+        if kind == 1:                       # an insertion
+            ops, tspan = [f"{m1}M", f"{gap}I", f"{ln - gap - m1}M"], ln - gap
+        elif kind == 2:                     # a deletion
+            ops, tspan = [f"{m1}M", f"{gap}D", f"{ln - m1}M"], ln + gap
+        elif kind == 3:                     # =/X runs
+            ops, tspan = [f"{m1}=", f"{gap}X", f"{ln - gap - m1}="], ln
+        else:
+            ops, tspan = [f"{ln}M"], ln
+        lines.append(f"{qn}\t{seq_len}\t{qs}\t{qs + ln}\t"
+                     f"{'+-'[rng.integers(0, 2)]}\tt\t{10**6}\t5\t"
+                     f"{5 + tspan}\t{ln}\t{ln}\t60\t"
+                     f"AS:i:{rng.integers(0, 1000)}\tcg:Z:{''.join(ops)}")
+    return "\n".join(lines) + "\n"
+
+
+@pytest.fixture(scope="module")
+def stacks():
+    """stack_text's table, order, sweep tensors and paffy_tpu's levels."""
+    text = stack_text(21)
+    t, r = pafio.parse_paf_text(text), ref_pafio.parse_paf_text(text)
+    order = tile.tile_sort_order(t)
+    np.testing.assert_array_equal(order, ref_tile.tile_sort_order(r))
+    args, total = sweep_tensors(t, order)
+    return t, order, args, total, ref_tile.assign_tile_levels(r, order)
+
+
+@pytest.mark.parametrize("tile_size", [7, 64, 4096])
+@pytest.mark.parametrize("batches", ["one", "two", "many"])
+def test_tiled_emulation_in_batches_matches_paffy_tpu(stacks, monkeypatch,
+                                                      tile_size, batches):
+    t, order, args, total, ref = stacks
+    plan = tile_device.tile_plan(*args, tile=tile_size)
+    row_off = plan.row_off.tolist()
+    widest = int(torch.diff(plan.row_off).max())
+    # "two": the cut that halves the rows most evenly; "many": the
+    # smallest budget, the widest row
+    half = min(max(r, plan.n_bins - r) for r in row_off)
+    budget = {"one": plan.n_bins, "two": max(half, widest),
+              "many": widest}[batches]
+    monkeypatch.setattr(tile_device, "HIST_BUDGET", 4 * budget)
+    got = tile_device.tile_sweep_tiled_plain(*args, tile=tile_size).numpy()
+    assert np.abs(got - ref).max() == 0
+    np.testing.assert_array_equal(got, tile_device.tile_sweep_plain(*args))
+    np.testing.assert_array_equal(got, c_sweep_arrays(
+        *(a.numpy() for a in args), SATURATION, total))
+    assert got.max() > 20                # the stacks' depth
+    n_batches = len(tile_device.tile_plan(*args, tile=tile_size).batch_off) - 1
+    assert {"one": n_batches == 1, "two": n_batches == 2,
+            "many": n_batches > 5}[batches]
+    assert 4 * budget < 64 << 10 and plan.n_bins > 4 * widest
+
+
+def test_deep_tile_input_in_batches_matches_paffy_tpu(tmp_path, monkeypatch):
+    """chip_smoke.deep_tile_input at a small size: its genome 0 is
+    genome.paf; the port's tile gives paffy_tpu's bytes; its rows at a
+    budget of a quarter of them take several batches, in which the
+    emulation gives the sequential sweep's levels."""
+    _, paf, lens, works = chip_smoke.build_genome(
+        str(tmp_path), native, n_contigs=3, seq_len=400_000, n_records=12,
+        m_columns=300_000)
+    data = chip_smoke.deep_tile_input(works, lens, loci=4, stack=25)
+    genome = (tmp_path / "genome.paf").read_bytes()
+    assert data.startswith(genome) and data.count(b"\n") == \
+        chip_smoke.DEEP_GENOMES * genome.count(b"\n") + 4 * 25
+    deep = tmp_path / "deep.paf"
+    deep.write_bytes(data)
+    ref, port = both(["tile", "-i", str(deep)], tmp_path)
+    assert port == ref and ref[0] == (0, None)
+    t = pafio.parse_paf_data(data)
+    args, _ = sweep_tensors(t, tile.tile_sort_order(t))
+    plan = tile_device.tile_plan(*args, tile=512)
+    widest = int(torch.diff(plan.row_off).max())
+    monkeypatch.setattr(tile_device, "HIST_BUDGET",
+                        4 * max(widest, plan.n_bins // 4))
+    assert len(tile_device.tile_plan(*args, tile=512).batch_off) > 4
+    got = tile_device.tile_sweep_tiled_plain(*args, tile=512)
+    assert torch.equal(got, tile_device.tile_sweep_plain(*args))
+    assert int(got.max()) >= 25
 
 
 # ------------------------------------------------------------ the command
