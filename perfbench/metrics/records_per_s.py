@@ -1,0 +1,8 @@
+"""records_per_s: the input PAF records of every job of the window over the
+window's seconds (its start to the last job's end)."""
+
+from readings import work_total
+
+
+def read(run):
+    return work_total(run, "records") / run.window_s
