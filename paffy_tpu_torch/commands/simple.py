@@ -67,8 +67,7 @@ def add_mismatches_main(argv) -> int:
     from paffy_tpu_torch import devconf
     from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
     devconf.device()        # no device: raise before reading any input
-    with phases.timed("fasta"):
-        pool = SequencePool.from_fasta_files(args.fasta_files)
+    pool = SequencePool.from_fasta_files(args.fasta_files)
     pool.ext        # upload and K2 before the first batch
     log_info("Read %d sequences from sequence files", len(pool.index))
     out = open_output_binary(args)

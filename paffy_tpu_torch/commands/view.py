@@ -88,8 +88,7 @@ def main(argv) -> int:
     if not args.fasta_files:
         print("Expected at least one sequence file", file=sys.stderr)
         return 1
-    with phases.timed("fasta"):
-        pool = SequencePool.from_fasta_files(args.fasta_files)
+    pool = SequencePool.from_fasta_files(args.fasta_files)
     pool.ext        # upload and K2 before the first batch
     log_info("Read %d sequences from sequence files", len(pool.index))
     out = open_output(args)

@@ -15,7 +15,7 @@ import re
 
 import numpy as np
 
-from paffy_tpu_torch import native
+from paffy_tpu_torch import native, phases
 from paffy_tpu_torch.core.model import (CHAR_TO_OP, INT_MAX, OP_TO_CHAR,
                                         PafTable)
 
@@ -142,8 +142,10 @@ def serialize_paf_bytes(t: PafTable, order=None) -> memoryview:
 
 def serialize_paf(t: PafTable) -> str:
     """The records as PAF lines, each with its newline, as a str (the
-    native serializer's bytes read as latin-1)."""
-    return bytes(serialize_paf_bytes(t)).decode("latin-1")
+    native serializer's bytes read as latin-1), timed as the phase
+    "serialize"."""
+    with phases.timed("serialize"):
+        return bytes(serialize_paf_bytes(t)).decode("latin-1")
 
 
 def read_paf_file(path_or_file) -> PafTable:

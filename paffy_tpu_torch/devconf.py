@@ -11,8 +11,11 @@ One explicit ``torch.device`` for every command:
 ``devices`` lists every device of that platform, for the mesh path.
 
 Results cross back to the host as int64 numpy arrays (``to_host_i64``), the
-PAF data model's integer type, or as they are through pinned memory
-(``download``, for large outputs).
+PAF data model's integer type, as they are through pinned memory
+(``download``, for large outputs), or as a list (``readback``, a few
+values the host needs to go on).  While tracing (phases.py), each of them
+counts a wait on the card and the bytes it brings down, and ``upload`` the
+bytes it sends, on the innermost open span.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import os
 
 import numpy as np
 import torch
+
+from paffy_tpu_torch import phases
 
 PLATFORM_ENV = "PAFFY_TPU_PLATFORM"
 
@@ -55,7 +60,12 @@ def devices() -> list[torch.device]:
 
 def to_host_i64(t: torch.Tensor) -> np.ndarray:
     """A device tensor as a host int64 numpy array (waits for the device)."""
-    return t.to(device="cpu", dtype=torch.int64).numpy()
+    return _waited(t, lambda: t.to(device="cpu", dtype=torch.int64).numpy())
+
+
+def readback(t: torch.Tensor) -> list:
+    """A small device tensor's values as a list (waits for the device)."""
+    return _waited(t, t.tolist)
 
 
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -63,6 +73,7 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     host = torch.from_numpy(np.ascontiguousarray(a))
     if dev.type != "cuda":
         return host
+    phases.count(bytes_up=host.nbytes)
     return host.pin_memory().to(dev, non_blocking=True)
 
 
@@ -71,7 +82,22 @@ def download(t: torch.Tensor) -> np.ndarray:
     through pinned memory (waits for the device)."""
     if t.device.type != "cuda":
         return t.numpy()
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    torch.cuda.current_stream(t.device).synchronize()
-    return host.numpy()
+
+    def copy():
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        torch.cuda.current_stream(t.device).synchronize()
+        return host.numpy()
+    return _waited(t, copy)
+
+
+def _waited(t: torch.Tensor, read):
+    """``read()``, which brings ``t`` to the host; for a CUDA tensor while
+    tracing, its seconds and ``t``'s bytes counted as a wait on the card."""
+    if t.device.type != "cuda" or not phases.recording():
+        return read()
+    t0 = phases.time.perf_counter()
+    out = read()
+    phases.count(wait_s=phases.time.perf_counter() - t0, waits=1,
+                 bytes_down=t.nbytes)
+    return out

@@ -31,7 +31,7 @@ from typing import NamedTuple
 
 import torch
 
-from paffy_tpu_torch import kernels, phases
+from paffy_tpu_torch import devconf, kernels, phases
 from paffy_tpu_torch.ops.coverage import EMPTY_TILE_LEVEL, SATURATION
 
 TILE = 8192             # positions per tile: 16 KB of counts per block
@@ -98,7 +98,7 @@ def tile_plan(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
     t_lo = torch.div(lo, tile, rounding_mode="floor")
     t_hi = torch.div(hi - 1, tile, rounding_mode="floor")
     cnt = torch.where(has, t_hi - t_lo + 1, 0)
-    n_pairs, bad = torch.stack([cnt.sum(), bad_order]).tolist()
+    n_pairs, bad = devconf.readback(torch.stack([cnt.sum(), bad_order]))
     if bad:
         raise ValueError("order must list distinct records of [0, n)")
     first = torch.cumsum(cnt, 0) - cnt
@@ -116,7 +116,7 @@ def tile_plan(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
     bins = torch.zeros(m, dtype=torch.int64, device=dev).scatter_reduce_(
         0, pair_pos, (in_tile + 1).clamp(max=cap), "amax")
     row_off = torch.cat([z, torch.cumsum(bins, 0)])
-    n_bins = int(row_off[-1])
+    n_bins, = devconf.readback(row_off[-1:])
     batch_off, batch_row = [0, m], [0, n_bins]
     if 4 * n_bins > HIST_BUDGET:
         widest = int(bins.max())
@@ -129,7 +129,7 @@ def tile_plan(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
         while batch_off[-1] < m:
             k = torch.searchsorted(row_off, row_off[batch_off[-1]] + lim,
                                    right=True) - 1
-            k, r = torch.stack([k, row_off[k]]).tolist()
+            k, r = devconf.readback(torch.stack([k, row_off[k]]))
             batch_off.append(k)
             batch_row.append(r)
     return TilePlan(tile_ids, pair_off, pair_pos, row_off, batch_off,
@@ -232,7 +232,8 @@ def tile_sweep(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
     one launch per batch of the plan, the plain sequential version for CPU
     tensors.  Every argument is a 1-D int64 tensor on one device; ``tile``
     (1..MAX_TILE) is the kernel's tile of positions.  The plan's cost is
-    timed as the phase "K5 tiles"."""
+    timed as the phase "K5 tiles", its readbacks (devconf.readback)
+    counted there as waits on the card while tracing."""
     args = (order, arena_off, run_off, istart, iend)
     if any(x.dtype != torch.int64 or x.dim() != 1 for x in args):
         raise ValueError("order, arena_off, run_off, istart and iend must be "

@@ -32,9 +32,11 @@ What the workers share, and why it is safe:
     given (PyTorch's current stream, which is per thread).  The C passes
     of the pipeline keep no static state (paffy_io.cpp's only static, the
     base tables of the column compare, is not on this path).
-  * ``kernels.LAUNCHES`` and ``phases.SECONDS``: updated under locks; a
-    phase's device sync is of the current stream, and its seconds are
-    summed over the workers.
+  * ``kernels.LAUNCHES`` and ``phases.SECONDS``/``SPANS``: updated under
+    locks; a phase's device sync is of the current stream, and its
+    seconds are summed over the workers.  While tracing, each worker's
+    spans descend from its group's ``group`` span, and that from the
+    caller's ``run_pipeline`` span, handed to the worker when it starts.
   * ``tile_device.tile_plan``'s and the chain's readbacks, and
     ``devconf.upload``/``download``: on the current stream, through
     PyTorch's pinned host allocator, which is thread-safe and keeps a
@@ -136,26 +138,32 @@ def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
     group runs ``sharded_pipeline_stage``, one after another; without one,
     the groups run in worker threads (see the module's docstring).  The
     bytes are the same either way."""
-    pool = seqs if isinstance(seqs, SequencePool) else SequencePool(seqs)
-    groups = split_by_contig(t, by_query=by_query)
-    if not groups:
-        return t
-    lens = t.qlen if by_query else t.tlen
-    shards = assign_shards(groups, [int(lens[g[0]]) for g in groups],
-                           n_shards)
+    with phases.span("run_pipeline"):
+        pool = seqs if isinstance(seqs, SequencePool) else SequencePool(seqs)
+        with phases.timed("split"):
+            groups = split_by_contig(t, by_query=by_query)
+            lens = t.qlen if by_query else t.tlen
+            shards = assign_shards(groups, [int(lens[g[0]]) for g in groups],
+                                   n_shards)
+        if not groups:
+            return t
 
-    def run_group(gi: int) -> PafTable:
-        return sharded_pipeline_stage(t.take(groups[gi]), pool, mesh)
+        def run_group(gi: int) -> PafTable:
+            with phases.span("group", group=gi, records=len(groups[gi])):
+                with phases.timed("gather"):
+                    sub = t.take(groups[gi])
+                return sharded_pipeline_stage(sub, pool, mesh)
 
-    order = [gi for shard in shards for gi in shard]
-    n_workers = min(len(order), int(os.environ.get(
-        "PAFFY_TPU_PIPELINE_THREADS", min(os.cpu_count() or 1, 4))))
-    if mesh is None and n_workers > 1:
-        outs = map_on_streams(run_group, order, n_workers, pool)
-    else:
-        outs = [run_group(gi) for gi in order]
-    out = dict(zip(order, outs))
-    return concat_tables([out[gi] for gi in range(len(groups))])
+        order = [gi for shard in shards for gi in shard]
+        n_workers = min(len(order), int(os.environ.get(
+            "PAFFY_TPU_PIPELINE_THREADS", min(os.cpu_count() or 1, 4))))
+        if mesh is None and n_workers > 1:
+            outs = map_on_streams(run_group, order, n_workers, pool)
+        else:
+            outs = [run_group(gi) for gi in order]
+        out = dict(zip(order, outs))
+        with phases.timed("concat"):
+            return concat_tables([out[gi] for gi in range(len(groups))])
 
 
 def map_on_streams(fn, items: list, n_workers: int,
@@ -167,9 +175,13 @@ def map_on_streams(fn, items: list, n_workers: int,
     waits for every worker stream before this returns, so what the caller
     later frees or reads is past the workers' work.  Results come in the
     order of ``items``; an exception is that of the first failing item in
-    that order."""
+    that order.  While tracing, each worker records its spans under the
+    caller's innermost open span (phases.handoff)."""
+    traced = phases.handoff()
     if pool.device.type != "cuda":
-        with ThreadPoolExecutor(max_workers=n_workers) as ex:
+        with ThreadPoolExecutor(max_workers=n_workers,
+                                initializer=phases.adopt,
+                                initargs=(traced,)) as ex:
             return list(ex.map(fn, items))
     pool.ext                  # K2, once, on the caller's stream
     caller = torch.cuda.current_stream(pool.device)
@@ -181,6 +193,7 @@ def map_on_streams(fn, items: list, n_workers: int,
     local = threading.local()
 
     def take_stream() -> None:
+        phases.adopt(traced)
         local.stream = free.get()
 
     def on_stream(x):

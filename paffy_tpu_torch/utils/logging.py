@@ -7,10 +7,13 @@ debug; critical by default); messages go to stderr.
 ``PAFFY_TPU_PROFILE=<dir>`` wraps each command, from its ``CommandTimer``
 to ``done()``, in a ``torch.profiler`` run: CPU activity, and CUDA
 activity when the command's platform is a card (``PAFFY_TPU_PLATFORM``
-unset, ``cuda`` or ``gpu``, and a CUDA device present).  One Chrome trace
+unset, ``cuda`` or ``gpu``, and a CUDA device present), of every thread
+where the installed torch offers it (``profile_all_threads``), so that
+``run_pipeline``'s worker threads' spans are in it too.  One Chrome trace
 per command is written into <dir>, named after the command and the
-process id.  Without the variable the profiler is neither imported nor
-started.
+process id; it holds the command's phases and spans (phases.py) as
+``user_annotation`` events.  Without the variable the profiler is neither
+imported nor started.
 """
 
 from __future__ import annotations
@@ -71,7 +74,12 @@ def _start_profiler():
     plat = os.environ.get("PAFFY_TPU_PLATFORM", "").strip().lower()
     if plat in ("", "cuda", "gpu") and torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    prof = profile(activities=activities)
+    try:
+        every_thread = {"experimental_config": torch._C._profiler.
+                        _ExperimentalConfig(profile_all_threads=True)}
+    except (AttributeError, TypeError):     # a torch without the option
+        every_thread = {}
+    prof = profile(activities=activities, **every_thread)
     prof.start()
     return prof
 

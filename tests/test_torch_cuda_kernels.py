@@ -8,7 +8,8 @@ K5 and K6 also against the C passes, K7 with its tables cut into seq
 ranges, a
 whole chaining on the card against the same on the CPU, the device check
 of the kernel library, run_pipeline's worker threads on streams of their
-own against its serial run, and, on a machine with two cards or more, the
+own against its serial run, its spans and the counters of its waits and
+copies under a profiler, and, on a machine with two cards or more, the
 mesh path with slots on two cards against one card.
 
 Needs a CUDA device and nvcc; skips without a device.  This file imports no
@@ -537,3 +538,67 @@ def test_threaded_run_pipeline_on_worker_streams(cuda, monkeypatch,
     # K2 on the caller's stream, the other 4 kernels per group on workers'
     assert used.count(default.cuda_stream) == 1
     assert set(used) - {default.cuda_stream} == worker
+
+
+def test_run_pipeline_spans_count_the_card(cuda, monkeypatch, tmp_path):
+    """Under a torch.profiler run, run_pipeline on the card at 4 workers
+    records each worker's spans under its group's span, which lies under
+    run_pipeline; the pool's upload counts the pool's bytes and its
+    synchronize as a wait; each group's K5 plan and K6 readbacks count
+    waits and bytes down; the seconds of the phase spans equal SECONDS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paffy_tpu_torch import phases
+    monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
+    monkeypatch.setenv("PAFFY_TPU_PIPELINE_THREADS", "4")
+    fa, paf, lens, _ = chip_smoke.build_genome(
+        str(tmp_path), native, n_contigs=8, seq_len=400_000, n_records=12,
+        m_columns=300_000)
+    t = parse_paf_text(pathlib.Path(paf).read_text())
+    pool = port_mm.SequencePool.from_fasta_files([fa])
+    want = bytes(serialize_paf_bytes(runner.run_pipeline(t, pool)))
+    pool = port_mm.SequencePool.from_fasta_files([fa])
+    phases.SPANS.clear()
+    phases.reset()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        got = bytes(serialize_paf_bytes(runner.run_pipeline(t, pool)))
+    finally:
+        prof.stop()
+    spans, seconds = list(phases.SPANS), dict(phases.SECONDS)
+    phases.SPANS.clear()
+    assert got == want
+
+    def up(s, name):
+        while s is not None and s.name != name:
+            s = s.parent
+        return s
+    top, = [s for s in spans if s.name == "run_pipeline"]
+    groups = [s for s in spans if s.name == "group"]
+    assert len(groups) == len(lens)
+    assert all(up(g, "run_pipeline") is top for g in groups)
+    sums, per = {}, {}
+    for s in spans:
+        if s.parent is not None:
+            assert s.parent.start <= s.start and s.end <= s.parent.end
+        if s.phase:
+            sums[s.name] = sums.get(s.name, 0.0) + s.end - s.start
+        if s.name in ("K5 tiles", "K6", "K4 count"):
+            g = up(s, "group")
+            assert g is not None and g.thread == s.thread
+            c = per.setdefault((g.ids["group"], s.name), {})
+            for k, v in s.counts.items():
+                c[k] = c.get(k, 0) + v
+    assert len(per) == 3 * len(lens)
+    for c in per.values():
+        assert c["waits"] >= 1 and c["wait_s"] > 0 and c["bytes_down"] > 0
+    assert sums.keys() == seconds.keys()
+    assert all(sums[k] == pytest.approx(v, rel=1e-9)
+               for k, v in seconds.items())
+    assert len({g.thread for g in groups} - {top.thread}) == 4
+    pu, = [s for s in spans if s.name == "pool upload"]
+    assert pu.counts["bytes_up"] == pool.pool_len
+    assert pu.counts["waits"] == 1 and up(pu, "group") is None
+    assert sum(s.counts.get("waits", 0) for s in spans
+               if s.name == "K5 tiles") >= 2 * len(lens)
