@@ -52,23 +52,20 @@ def seq_to_bytes(seq: str) -> np.ndarray:
     return np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
 
 
-def fasta_pool_from_bytes(datas: list[bytes]):
+def fasta_pool_from_bytes(datas: list[bytes], n_threads: int | None = None):
     """(pool: uint8 array, index {name: (offset, length)}) built straight
-    from FASTA file bytes by ``native.fasta_pack_bytes``.  A duplicate name
-    keeps its last occurrence in the index (both copies' bytes stay in the
-    pool)."""
-    parts: list[np.ndarray] = []
-    index: dict[str, tuple[int, int]] = {}
-    pos = 0
-    for data in datas:
-        pool, records = native.fasta_pack_bytes(data)
-        parts.append(pool)
-        for name, off, ln in records:
-            index[name] = (pos + off, ln)
-        pos += len(pool)
-    pool = (np.concatenate(parts) if len(parts) > 1
-            else (parts[0] if parts else np.empty(0, dtype=np.uint8)))
-    return pool, index
+    from FASTA file bytes, concatenated in order, by ``native.fasta_pack``.
+    A duplicate name keeps its last occurrence in the index (both copies'
+    bytes stay in the pool)."""
+    pool, records, _ = native.fasta_pack(
+        datas, lambda n: np.empty(n, dtype=np.uint8), n_threads)
+    return pool, pool_index(records)
+
+
+def pool_index(records) -> dict[str, tuple[int, int]]:
+    """{name: (offset, length)} of ``native.fasta_pack``'s records; a
+    repeated name takes its last record."""
+    return {name: (off, ln) for name, off, ln in records}
 
 
 def pack_sequences(seqs: dict[str, str]

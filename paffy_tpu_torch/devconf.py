@@ -69,12 +69,16 @@ def readback(t: torch.Tensor) -> list:
 
 
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """Copy a host array to ``dev``; CUDA copies go through pinned memory."""
+    """Copy a host array to ``dev``; CUDA copies go through pinned memory:
+    in place from an array in pinned memory, else through a pinned
+    copy."""
     host = torch.from_numpy(np.ascontiguousarray(a))
     if dev.type != "cuda":
         return host
     phases.count(bytes_up=host.nbytes)
-    return host.pin_memory().to(dev, non_blocking=True)
+    if not host.is_pinned():
+        host = host.pin_memory()
+    return host.to(dev, non_blocking=True)
 
 
 def download(t: torch.Tensor) -> np.ndarray:

@@ -22,6 +22,7 @@ import fcntl
 import hashlib
 import os
 import platform
+import stat
 import subprocess
 import threading
 from pathlib import Path
@@ -45,6 +46,7 @@ _U8P = ctypes.POINTER(ctypes.c_ubyte)
 _U16P = ctypes.POINTER(ctypes.c_ushort)
 _LL = ctypes.c_longlong
 _CP = ctypes.c_char_p
+_VPP = ctypes.POINTER(ctypes.c_void_p)
 # leading arguments of encode_serialize_sizes / _fill
 _ENC_COMMON = [_LL, _I64P, _U8P, _U8P, _I64P, _I64P, _CP, _U8P, _I64P, _I64P,
                _U8P, _I64P, _I64P]
@@ -171,7 +173,11 @@ _SIGNATURES = (
                                  _I64P, _CP, _I64P, _I64P, _CP, _LL]),
     ("fasta_scan", None, [_CP, _LL, _I64P, _I64P, _I64P]),
     ("fasta_fill_headers", None, [_CP, _LL, _CP, _I64P, _I64P]),
-    ("fasta_fill", None, [_CP, _LL, _CP, _I64P, _I64P, _I64P, _U8P]),
+    ("fasta_pack_scan", _LL, [_LL, _VPP, _I64P, _LL, _I64P, _I64P]),
+    ("fasta_pack_fill", None, [_VPP, _LL, _I64P, _LL, _U8P, _LL, _CP, _LL,
+                               _I64P, _I64P, _I64P]),
+    ("fasta_map", ctypes.c_void_p, [_CP, _I64P]),
+    ("fasta_unmap", None, [ctypes.c_void_p, _LL]),
     ("column_compare_counts", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P,
                                      _I64P, _I64P, _I64P]),
     ("synth_query_pool", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P, _LL,
@@ -577,24 +583,90 @@ def fasta_headers(data: bytes):
              int(seq_len[i])) for i in range(n)]
 
 
-def fasta_pack_bytes(data: bytes):
-    """(pool: uint8 array, [(name, offset, length)] in file order) of a
-    FASTA file in two native passes: trimmed
-    sequence-line spans, right-stripped headers, content before the first
-    header skipped (paffy_tpu's read_fasta semantics)."""
+_FASTA_MT_BYTES = 4 << 20   # thread the FASTA pack above 4 MB of input
+_FASTA_CHUNK_FIELDS = 7     # int64s a chunk of fasta_pack_scan/_fill
+
+
+def fasta_pack(bufs, alloc, n_threads: int | None = None):
+    """The sequence pool of FASTA files' bytes (``bufs``: bytes-like, or
+    (address, length) of memory that stays valid for the call), in file
+    order, in one threaded native pass: line-aligned chunks counted in
+    threads, the counts prefix-summed over all files, then each chunk's
+    trimmed sequence bytes written straight to their final offsets in
+    ``alloc(n)``, a writable contiguous uint8 array of the pool's n bytes
+    that the caller allocates (and may guard).  Right-stripped headers,
+    content before a file's first header skipped (paffy_tpu's read_fasta
+    semantics).  The pass runs in ``n_threads`` threads (by default
+    ``_default_threads`` above 4 MB of input in all, else 1).
+
+    Returns (the pool ``alloc`` gave, [(name, offset, length)] in file
+    order, the threads of the pass)."""
     lib = get_lib()
-    n, sb, nb = _fasta_scan(lib, data)
+    spans, keep = [], []        # keep: the views the addresses point into
+    for b in bufs:
+        if not isinstance(b, tuple):
+            keep.append(np.frombuffer(b, dtype=np.uint8))
+            b = (keep[-1].ctypes.data, len(keep[-1]))
+        spans.append(b)
+    lens = np.array([n for _, n in spans] or [0], dtype=np.int64)
+    if n_threads is None:
+        n_threads = _default_threads(None) if lens.sum() >= _FASTA_MT_BYTES \
+            else 1
+    nt = max(1, n_threads)
+    addrs = (ctypes.c_void_p * max(len(spans), 1))(*[a for a, _ in spans])
+    chunks = np.empty((len(spans) + nt) * _FASTA_CHUNK_FIELDS, dtype=np.int64)
+    totals = np.empty(3, dtype=np.int64)
+    n_chunks = lib.fasta_pack_scan(len(spans), addrs, _p_i64(lens), nt,
+                                   _p_i64(chunks), _p_i64(totals))
+    sb, n, nb = (int(v) for v in totals)
+    pool = alloc(sb)
+    if not (isinstance(pool, np.ndarray) and pool.dtype == np.uint8
+            and pool.shape == (sb,) and pool.flags.c_contiguous
+            and pool.flags.writeable):
+        raise ValueError("alloc must give a writable contiguous uint8 "
+                         f"array of {sb} bytes")
     name_pool = np.empty(max(nb, 1), dtype=np.uint8)
-    name_off, seq_off, seq_len = (np.empty(n, dtype=np.int64)
+    name_off, seq_off, seq_len = (np.empty(max(n, 1), dtype=np.int64)
                                   for _ in range(3))
-    pool = np.empty(sb, dtype=np.uint8)
-    lib.fasta_fill(data, len(data), name_pool.ctypes.data_as(_CP),
-                   _p_i64(name_off), _p_i64(seq_off), _p_i64(seq_len),
-                   _p_u8(pool))
+    lib.fasta_pack_fill(addrs, n_chunks, _p_i64(chunks), nt, _p_u8(pool), sb,
+                        name_pool.ctypes.data_as(_CP), n, _p_i64(name_off),
+                        _p_i64(seq_off), _p_i64(seq_len))
     raw = name_pool.tobytes()
     return pool, [(raw[name_off[i]: raw.index(b"\0", name_off[i])]
                    .decode("latin-1"), int(seq_off[i]), int(seq_len[i]))
-                  for i in range(n)]
+                  for i in range(n)], nt
+
+
+def fasta_pack_files(paths, alloc, n_threads: int | None = None):
+    """``fasta_pack`` of FASTA files: each regular, non-empty file mapped
+    read-only for the pass, anything else (a FIFO, /dev/stdin as a pipe,
+    an empty file) read into bytes."""
+    lib = get_lib()
+    maps = []
+    try:
+        bufs = []
+        for p in paths:
+            if stat.S_ISREG(os.stat(p).st_mode):
+                n = _LL()
+                addr = lib.fasta_map(os.fsencode(p), ctypes.byref(n))
+                if addr:
+                    maps.append((addr, n.value))
+                    bufs.append(maps[-1])
+                    continue
+            with open(p, "rb") as fh:
+                bufs.append(fh.read())
+        return fasta_pack(bufs, alloc, n_threads)
+    finally:
+        for addr, n in maps:
+            lib.fasta_unmap(addr, n)
+
+
+def fasta_pack_bytes(data: bytes, n_threads: int | None = None):
+    """(pool: uint8 array, [(name, offset, length)] in file order) of one
+    FASTA file's bytes (``fasta_pack``)."""
+    pool, records, _ = fasta_pack(
+        [data], lambda n: np.empty(n, dtype=np.uint8), n_threads)
+    return pool, records
 
 
 def column_compare_counts(pool: np.ndarray, lens, qpos0, tpos0, rev, rec,

@@ -21,8 +21,14 @@
 #include <cstdint>
 #include <cstring>
 #include <cstdio>
+#include <functional>
 #include <thread>
 #include <vector>
+
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 
 extern "C" {
 
@@ -1094,10 +1100,10 @@ void coverage_counts32(const int* diff, long long n,
     }
 }
 
-// FASTA pool scan/fill (core/fasta.fasta_pool_from_bytes): two passes over
-// the raw file bytes building the concatenated sequence pool directly — no
-// per-line Python strings and no multi-pass numpy masks (the numpy form
-// pays ~8 full-array passes; this is 2).  Semantics mirror read_fasta:
+// FASTA headers and sizes (native.fasta_headers) and the sequence pool
+// (fasta_pack_scan/_fill below) straight from the raw file bytes: no
+// per-line Python strings and no multi-pass numpy masks.  Semantics mirror
+// read_fasta:
 // header = line starting '>', name = line[1:] with trailing whitespace
 // stripped; sequence lines contribute their whitespace-TRIMMED span
 // (interior bytes kept verbatim); content before the first header and
@@ -1176,28 +1182,78 @@ void fasta_fill_headers(const char* buf, long long len,
     if (rec >= 0) seq_len[rec] = cur;
 }
 
-void fasta_fill(const char* buf, long long len,
-                char* name_pool, long long* name_off,
-                long long* seq_off, long long* seq_len,
-                unsigned char* pool) {
-    long long rec = -1, npos = 0, pos = 0;
-    const char* p = buf;
-    const char* end = buf + len;
+// The sequence pool in one threaded pass over every file's bytes
+// (core/fasta.fasta_pool_from_bytes, ops/mismatch.SequencePool).  Each
+// file is cut into line-aligned chunks; fasta_pack_scan counts, in
+// threads, each chunk's trimmed sequence bytes before and from its first
+// header, its headers and their name bytes, then prefix-sums the counts
+// over all files: a chunk's leading bytes belong to the record open at its
+// start, and are skipped when no earlier chunk of its file holds a header
+// (the content before a file's first header).  The caller allocates the
+// pool at its final size, and fasta_pack_fill writes each chunk's bases
+// straight to their final offsets, in threads.  Semantics are fasta_scan's
+// and fasta_fill_headers'; files are concatenated in order.
+//
+// A chunk is FASTA_CHUNK_FIELDS int64s: its file, its [begin, end), then
+// the scan's counts, which the prefix sum turns into the fill's bases.
+enum {
+    CH_FILE, CH_BEGIN, CH_END,
+    CH_LEAD,    // scan: sequence bytes before the chunk's first header;
+                // fill: 1 when they are skipped
+    CH_REST,    // scan: sequence bytes from it on; fill: the pool offset
+    CH_HDRS,    // scan: headers; fill: the index of its first record
+    CH_NAMES,   // scan: name bytes (NUL included); fill: its name offset
+    FASTA_CHUNK_FIELDS
+};
+
+static void fasta_count_chunk(const char* p, const char* end,
+                              long long* c) {
+    long long lead = 0, rest = 0, hdrs = 0, names = 0;
     while (p < end) {
         const char* eol = (const char*)memchr(p, '\n', end - p);
         const char* le = eol ? eol : end;
         if (le > p) {
             if (*p == '>') {
-                if (rec >= 0) seq_len[rec] = pos - seq_off[rec];
-                ++rec;
+                const char* ne = le;
+                while (ne > p + 1 && is_ws(ne[-1])) --ne;
+                names += (ne - p - 1) + 1;
+                ++hdrs;
+            } else {
+                const char* s = p;
+                const char* e = le;
+                while (s < e && is_ws(*s)) ++s;
+                while (e > s && is_ws(e[-1])) --e;
+                (hdrs ? rest : lead) += e - s;
+            }
+        }
+        p = le + 1;
+    }
+    c[CH_LEAD] = lead;
+    c[CH_REST] = rest;
+    c[CH_HDRS] = hdrs;
+    c[CH_NAMES] = names;
+}
+
+static void fasta_fill_chunk(const char* p, const char* end,
+                             const long long* c, unsigned char* pool,
+                             char* name_pool, long long* name_off,
+                             long long* seq_off) {
+    bool in_rec = !c[CH_LEAD];
+    long long pos = c[CH_REST], rec = c[CH_HDRS], npos = c[CH_NAMES];
+    while (p < end) {
+        const char* eol = (const char*)memchr(p, '\n', end - p);
+        const char* le = eol ? eol : end;
+        if (le > p) {
+            if (*p == '>') {
                 const char* ne = le;
                 while (ne > p + 1 && is_ws(ne[-1])) --ne;
                 name_off[rec] = npos;
                 memcpy(name_pool + npos, p + 1, ne - p - 1);
                 npos += ne - p - 1;
                 name_pool[npos++] = '\0';
-                seq_off[rec] = pos;
-            } else if (rec >= 0) {
+                seq_off[rec++] = pos;
+                in_rec = true;
+            } else if (in_rec) {
                 const char* s = p;
                 const char* e = le;
                 while (s < e && is_ws(*s)) ++s;
@@ -1208,7 +1264,128 @@ void fasta_fill(const char* buf, long long len,
         }
         p = le + 1;
     }
-    if (rec >= 0) seq_len[rec] = pos - seq_off[rec];
+}
+
+// fn(i) for i in [0, n) on up to n_threads threads, each taking the next
+// index in turn.
+static void fasta_run_chunks(long long n, long long n_threads,
+                             const std::function<void(long long)>& fn) {
+    const long long T = std::min(n_threads, n);
+    if (T <= 1) {
+        for (long long i = 0; i < n; ++i) fn(i);
+        return;
+    }
+    std::atomic<long long> next(0);
+    std::vector<std::thread> th;
+    for (long long t = 0; t < T; ++t)
+        th.emplace_back([&] {
+            for (long long i; (i = next.fetch_add(1)) < n;) fn(i);
+        });
+    for (auto& t : th) t.join();
+}
+
+// Cuts the files into at most n_bufs + n_threads chunks of about
+// 1 / n_threads of their bytes, counts them and prefix-sums the counts.
+// Fills chunks[(n_bufs + n_threads) * FASTA_CHUNK_FIELDS] and totals
+// (sequence bytes, records, name bytes); returns the number of chunks.
+long long fasta_pack_scan(long long n_bufs, const char* const* bufs,
+                          const long long* lens, long long n_threads,
+                          long long* chunks, long long* totals) {
+    if (n_threads < 1) n_threads = 1;
+    long long all = 0;
+    for (long long f = 0; f < n_bufs; ++f) all += lens[f];
+    const long long target = std::max(1LL, (all + n_threads - 1) / n_threads);
+    long long n = 0;
+    for (long long f = 0; f < n_bufs; ++f) {
+        const char* buf = bufs[f];
+        const long long len = lens[f];
+        const long long k = std::max(1LL, (len + target - 1) / target);
+        long long begin = 0;
+        for (long long s = 1; s <= k; ++s) {
+            long long cut = len;
+            if (s < k) {
+                // the first line start at or after the nominal cut (which
+                // is at least 1: k is at most len)
+                const long long at = std::max(begin, len * s / k);
+                const char* nl =
+                    (const char*)memchr(buf + at - 1, '\n', len - at + 1);
+                cut = nl ? (nl - buf) + 1 : len;
+            }
+            long long* c = chunks + n++ * FASTA_CHUNK_FIELDS;
+            c[CH_FILE] = f;
+            c[CH_BEGIN] = begin;
+            c[CH_END] = cut;
+            begin = cut;
+        }
+    }
+    fasta_run_chunks(n, n_threads, [&](long long i) {
+        long long* c = chunks + i * FASTA_CHUNK_FIELDS;
+        const char* buf = bufs[c[CH_FILE]];
+        fasta_count_chunk(buf + c[CH_BEGIN], buf + c[CH_END], c);
+    });
+    long long pos = 0, rec = 0, npos = 0;
+    bool seen = false;     // a header in an earlier chunk of this file
+    for (long long i = 0; i < n; ++i) {
+        long long* c = chunks + i * FASTA_CHUNK_FIELDS;
+        if (i == 0 || c[CH_FILE] != c[CH_FILE - FASTA_CHUNK_FIELDS])
+            seen = false;
+        const long long lead = c[CH_LEAD], rest = c[CH_REST];
+        const long long hdrs = c[CH_HDRS], names = c[CH_NAMES];
+        c[CH_LEAD] = !seen;
+        c[CH_REST] = pos;
+        c[CH_HDRS] = rec;
+        c[CH_NAMES] = npos;
+        pos += (seen ? lead : 0) + rest;
+        rec += hdrs;
+        npos += names;
+        seen = seen || hdrs > 0;
+    }
+    totals[0] = pos;
+    totals[1] = rec;
+    totals[2] = npos;
+    return n;
+}
+
+// Writes the n_chunks chunks of fasta_pack_scan: the bases to pool (the
+// totals' sequence bytes), the names NUL-terminated to name_pool, and
+// each record's name offset, pool offset and length.
+void fasta_pack_fill(const char* const* bufs, long long n_chunks,
+                     const long long* chunks, long long n_threads,
+                     unsigned char* pool, long long seq_bytes,
+                     char* name_pool, long long n_records,
+                     long long* name_off, long long* seq_off,
+                     long long* seq_len) {
+    fasta_run_chunks(n_chunks, n_threads, [&](long long i) {
+        const long long* c = chunks + i * FASTA_CHUNK_FIELDS;
+        const char* buf = bufs[c[CH_FILE]];
+        fasta_fill_chunk(buf + c[CH_BEGIN], buf + c[CH_END], c, pool,
+                         name_pool, name_off, seq_off);
+    });
+    // a record's bases end where the next record's begin: a file's bytes
+    // before its first header are skipped, so across files too
+    for (long long r = 0; r < n_records; ++r)
+        seq_len[r] = (r + 1 < n_records ? seq_off[r + 1] : seq_bytes)
+                     - seq_off[r];
+}
+
+// A regular, non-empty file mapped read-only for fasta_pack_scan/_fill:
+// its address, its length in *len; null when it is not one or cannot be
+// mapped (the caller then reads it).  fasta_unmap releases it.
+const char* fasta_map(const char* path, long long* len) {
+    const int fd = open(path, O_RDONLY | O_CLOEXEC);
+    if (fd < 0) return nullptr;
+    struct stat st;
+    void* p = MAP_FAILED;
+    if (fstat(fd, &st) == 0 && S_ISREG(st.st_mode) && st.st_size > 0)
+        p = mmap(nullptr, st.st_size, PROT_READ, MAP_PRIVATE, fd, 0);
+    close(fd);
+    if (p == MAP_FAILED) return nullptr;
+    *len = st.st_size;
+    return (const char*)p;
+}
+
+void fasta_unmap(const char* p, long long len) {
+    munmap((void*)p, len);
 }
 
 // Mismatch-encode CSR rebuild, offsets half: one walk over the original

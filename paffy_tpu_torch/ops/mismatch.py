@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from paffy_tpu_torch import devconf, native, phases
-from paffy_tpu_torch.core.fasta import fasta_pool_from_bytes, pack_sequences
+from paffy_tpu_torch.core.fasta import pack_sequences, pool_index
 from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.ops.compare import build_piece_table, piece_match_counts
 from paffy_tpu_torch.ops.mismatch_device import build_ext_pool
@@ -57,26 +57,50 @@ class SequencePool:
         return self
 
     @classmethod
-    def from_fasta_files(cls, paths) -> "SequencePool":
-        """The pool straight from FASTA file bytes (native pack), timed as
-        the phase "fasta"."""
+    def from_fasta_files(cls, paths, n_threads: int | None = None
+                         ) -> "SequencePool":
+        """The pool straight from the FASTA files, timed as the phase
+        "fasta": one threaded native pass (``native.fasta_pack_files``,
+        ``n_threads`` as there) from the mapped files into the guarded
+        buffer, which on a CUDA device is the pinned block that ``ext``
+        uploads from.  While tracing, counts ``pool_threads``, the
+        threads of the pass."""
         with phases.timed("fasta"):
-            datas = []
-            for p in paths:
-                with open(p, "rb") as fh:
-                    datas.append(fh.read())
-            return cls.from_arrays(*fasta_pool_from_bytes(datas))
+            self = cls.__new__(cls)
+            self.device = devconf.device()
+            _, records, nt = native.fasta_pack_files(paths, self._guarded,
+                                                     n_threads)
+            phases.count(pool_threads=nt)
+            self._init_ext(pool_index(records))
+            return self
 
     def _init_from_pool(self, pool_np: np.ndarray, index) -> None:
-        self.index = index
-        n = POOL_GUARD + len(pool_np)
-        padded = -(-(n + POOL_GUARD + 2 * POOL_W) // POOL_W) * POOL_W
-        buf = np.zeros(padded, dtype=np.uint8)
-        buf[POOL_GUARD: n] = pool_np
-        self._guard = POOL_GUARD
-        self._data_len = len(pool_np)
-        self._pool_np = buf
         self.device = devconf.device()
+        self._guarded(len(pool_np))[:] = pool_np
+        self._init_ext(index)
+
+    def _guarded(self, n_data: int) -> np.ndarray:
+        """Allocates the guarded host pool for ``n_data`` sequence bytes,
+        its guard and tail zeroed, and gives the view the sequences go
+        to.  On a CUDA device it is a pinned block of torch's caching host
+        allocator (the array's base holds it), which ``ext`` uploads from
+        in place."""
+        n = POOL_GUARD + n_data
+        padded = -(-(n + POOL_GUARD + 2 * POOL_W) // POOL_W) * POOL_W
+        if self.device.type == "cuda":
+            buf = torch.empty(padded, dtype=torch.uint8,
+                              pin_memory=True).numpy()
+        else:
+            buf = np.empty(padded, dtype=np.uint8)
+        buf[:POOL_GUARD] = 0
+        buf[n:] = 0
+        self._guard = POOL_GUARD
+        self._data_len = n_data
+        self._pool_np = buf
+        return buf[POOL_GUARD: n]
+
+    def _init_ext(self, index) -> None:
+        self.index = index
         self._ext_t = None
         self._ext_copies: dict[torch.device, torch.Tensor] = {}
         # ext and its copies are made once, whichever threads ask at once
@@ -127,13 +151,19 @@ class SequencePool:
     @property
     def ext(self) -> torch.Tensor:
         """u8 [2 * pool_len] extended pool on ``device``, built on first use
-        from the host pool (uploaded through pinned memory), once: a thread
-        that asks while another builds it waits for that build.  The raw
-        pool's device copy is freed once ext exists: the compare reads only
-        ext."""
+        from the host pool, once: a thread that asks while another builds
+        it waits for that build.  On CUDA the upload copies from the pinned
+        host pool in place (the phase's closing synchronize ends the copy
+        before the pool can free its block); while tracing it counts
+        ``pool_direct``, 1 when it did, 0 when it staged through a pinned
+        copy.  The raw pool's
+        device copy is freed once ext exists: the compare reads only ext."""
         with self._ext_lock:
             if self._ext_t is None:
                 with phases.timed("pool upload", self.device):
+                    if self.device.type == "cuda":
+                        phases.count(pool_direct=int(
+                            torch.from_numpy(self._pool_np).is_pinned()))
                     raw = devconf.upload(self._pool_np, self.device)
                 with phases.timed("K2", self.device):
                     self._ext_t = build_ext_pool(raw)

@@ -9,7 +9,8 @@ ranges, a
 whole chaining on the card against the same on the CPU, the device check
 of the kernel library, run_pipeline's worker threads on streams of their
 own against its serial run, its spans and the counters of its waits and
-copies under a profiler, and, on a machine with two cards or more, the
+copies under a profiler, the pool's pinned host bytes uploaded in place,
+and, on a machine with two cards or more, the
 mesh path with slots on two cards against one card.
 
 Needs a CUDA device and nvcc; skips without a device.  This file imports no
@@ -602,3 +603,33 @@ def test_run_pipeline_spans_count_the_card(cuda, monkeypatch, tmp_path):
     assert pu.counts["waits"] == 1 and up(pu, "group") is None
     assert sum(s.counts.get("waits", 0) for s in spans
                if s.name == "K5 tiles") >= 2 * len(lens)
+
+
+def test_pool_is_pinned_and_uploads_in_place(cuda, monkeypatch, tmp_path):
+    """On the card the pool's host bytes are a pinned block: the traced
+    upload counts pool_direct 1 and the pool's bytes, and ext equals that
+    of a pool made by from_arrays over the same bytes."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paffy_tpu_torch import phases
+    monkeypatch.delenv("PAFFY_TPU_PLATFORM", raising=False)
+    fa, _, _ = chip_smoke.build_files(str(tmp_path), native,
+                                      seq_len=400_000, n_records=12,
+                                      m_columns=300_000)
+    pool = port_mm.SequencePool.from_fasta_files([fa])
+    assert torch.from_numpy(pool.host_pool).is_pinned()
+    phases.SPANS.clear()
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    try:
+        ext = pool.ext
+    finally:
+        prof.stop()
+    pu, = [s for s in phases.SPANS if s.name == "pool upload"]
+    phases.SPANS.clear()
+    assert pu.counts["pool_direct"] == 1
+    assert pu.counts["bytes_up"] == pool.pool_len
+    g = pool._guard
+    other = port_mm.SequencePool.from_arrays(
+        pool.host_pool[g: g + pool._data_len].copy(), pool.index)
+    assert torch.equal(ext, other.ext)

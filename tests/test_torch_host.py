@@ -177,25 +177,119 @@ FASTAS = {
     "wrapped-lowercase": ">s1 desc\nACGTacgt\nNNNN\n>s2\nGGGG\n\n>s3\n",
     "duplicates-whitespace": "junk\n>a  \nAC GT\n>b\nTT\n>a\nCCCC  \n",
     "iupac": ">x\nACGTNMKRYVBHDWSX\n>y\nacgtnmkryvbhdwsx\n",
+    # the threaded pack's chunk cuts, at 2 and 7 threads, fall inside a
+    # long header, inside the content before the first header, and inside
+    # a record longer than a chunk
+    "cut-in-header": ">" + "h" * 150 + " \t\nACGT\nac\n>b\nGG\n",
+    "cut-in-leading-junk": "junk line, > no header\n" * 12 + "ACGT\n>a\nCA\n",
+    "crlf": ">a desc\r\nACGT\r\n\r\n acgt \r\n>b\r\nNN\r\n" * 4,
+    "no-final-newline": ">a\nACGT\n>b\nAC\nGT",
+    "header-last-line": ">a\nACGT\n>b\nGG\n>last \t",
+    "empty-file": "",
+    "record-longer-than-chunk": ">long\n" + ("ACGTNacgtn" * 8 + "\n") * 30
+                                + ">short\nT\n",
+    # z twice here and once more in the second file
+    "duplicate-in-and-across-files": ">z\nCCCC\n>y\nG\n>z\nA\n>w\nTT\n",
 }
+POOL_THREADS = [1, 2, 7]
 
 
+def assert_pools_equal(got, want):
+    """Index, guarded length and every host byte (guards and padded tail
+    included) equal."""
+    assert got.index == want.index and got.pool_len == want.pool_len
+    assert list(got.index) == list(want.index)
+    np.testing.assert_array_equal(got.host_pool, want.host_pool)
+    names = np.array(list(want.index), dtype=object)
+    assert got.offsets_for(names, "query").tolist() == \
+        want.offsets_for(names, "query").tolist()
+
+
+@pytest.mark.parametrize("n_threads", POOL_THREADS)
 @pytest.mark.parametrize("name", list(FASTAS))
-def test_fasta_pool_bytes_and_index(name, tmp_path):
+def test_fasta_pool_bytes_and_index(name, n_threads, tmp_path):
     paths = []
     for k in range(2):
         p = tmp_path / f"{k}.fa"
         p.write_bytes((FASTAS[name] if k == 0 else ">z\nTTAA\n").encode())
         paths.append(str(p))
     want = ref_mm.SequencePool.from_fasta_files(paths)
-    got = port_mm.SequencePool.from_fasta_files(paths)
-    assert got.index == want.index and got.pool_len == want.pool_len
-    np.testing.assert_array_equal(got.host_pool, want.host_pool)
-    assert got.offsets_for(np.array(list(want.index), dtype=object),
-                           "query").tolist() == want.offsets_for(
-        np.array(list(want.index), dtype=object), "query").tolist()
+    got = port_mm.SequencePool.from_fasta_files(paths, n_threads=n_threads)
+    assert_pools_equal(got, want)
     data = pathlib.Path(paths[0]).read_bytes()
     assert native.fasta_headers(data) == ref_native.fasta_headers(data)
+
+
+@pytest.mark.parametrize("n_threads", POOL_THREADS)
+def test_fasta_pool_through_fifo(n_threads, tmp_path):
+    """A FIFO, which cannot be mapped, is read into bytes: the pool of a
+    FIFO and a regular file equals paffy_tpu's of the same bytes."""
+    import threading
+    data = (FASTAS["duplicates-whitespace"]
+            + FASTAS["record-longer-than-chunk"]).encode()
+    fifo, reg, other = (tmp_path / n for n in ("in.fifo", "in.fa", "z.fa"))
+    os.mkfifo(fifo)
+    reg.write_bytes(data)
+    other.write_bytes(b">z\nTTAA\n")
+
+    def feed():
+        with open(fifo, "wb") as fh:
+            fh.write(data)
+    writer = threading.Thread(target=feed)
+    writer.start()
+    try:
+        got = port_mm.SequencePool.from_fasta_files([str(fifo), str(other)],
+                                                    n_threads=n_threads)
+    finally:
+        writer.join(timeout=30)
+    assert not writer.is_alive()
+    assert_pools_equal(got, ref_mm.SequencePool.from_fasta_files(
+        [str(reg), str(other)]))
+
+
+def random_fasta(rng) -> bytes:
+    """FASTA-like bytes with every case the pack distinguishes: headers
+    with trailing whitespace, wrapped and ragged sequence lines with
+    whitespace at both ends and inside, empty lines, CR line ends, content
+    before the first header, lines that start with '>' after a space."""
+    pieces = []
+    for _ in range(int(rng.integers(0, 40))):
+        kind = rng.integers(0, 8)
+        if kind == 0:
+            pieces.append(">" + "n" * int(rng.integers(0, 30))
+                          + " \t\r"[int(rng.integers(0, 3))]
+                          * int(rng.integers(0, 3)))
+        elif kind == 1:
+            pieces.append("")
+        elif kind == 2:
+            pieces.append(" >x " + "A" * int(rng.integers(0, 5)))
+        else:
+            line = "".join(rng.choice(list("ACGTNacgt \t\r\x0b\x0c"),
+                                      int(rng.integers(0, 90))))
+            pieces.append(line)
+    text = "\n".join(pieces)
+    return (text + "\n" if rng.random() < 0.7 else text).encode("latin-1")
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fasta_pack_threads_equal_paffy_tpu(seed):
+    """At every thread count, the threaded pack of random FASTA-like bytes
+    in one to three files equals paffy_tpu's pool of the same files."""
+    from paffy_tpu.core.fasta import fasta_pool_from_bytes as ref_pool
+    from paffy_tpu_torch.core.fasta import fasta_pool_from_bytes
+    rng = np.random.default_rng(seed)
+    for _ in range(20):
+        datas = [random_fasta(rng) for _ in range(int(rng.integers(1, 4)))]
+        want_pool, want_index = ref_pool(datas)
+        for n_threads in (1, 2, 3, 5, 8, 16):
+            pool, index = fasta_pool_from_bytes(datas, n_threads=n_threads)
+            np.testing.assert_array_equal(pool, want_pool)
+            assert index == want_index and list(index) == list(want_index)
+        for data in datas:
+            pool, records = native.fasta_pack_bytes(data, n_threads=4)
+            want = ref_native.fasta_pack_bytes(data)
+            np.testing.assert_array_equal(pool, want[0])
+            assert records == want[1]
 
 
 def pools_and_table(seed):

@@ -210,6 +210,28 @@ def test_counters_go_to_the_innermost_open_span():
     assert phases.SPANS == []
 
 
+@pytest.mark.parametrize("size", ["tiny", "above-threshold"])
+def test_fasta_span_counts_pool_threads(tmp_path, size):
+    """A traced from_fasta_files counts the threads of its pack on its
+    "fasta" span: 1 below the threading threshold, the default count
+    (more than 1 wherever the CPU count allows) above it."""
+    fa = tmp_path / "s.fa"
+    if size == "tiny":
+        fa.write_bytes(b">a\nACGT\n")
+        want = 1
+    else:
+        line = b"ACGTNacgtn" * 8 + b"\n"
+        fa.write_bytes(b">a\n" + line * (native._FASTA_MT_BYTES
+                                         // len(line) + 1))
+        want = native._default_threads(None)
+        assert want > 1 or (os.cpu_count() or 1) == 1
+    pool, spans, _ = traced(lambda: SequencePool.from_fasta_files([str(fa)]))
+    (span,) = [s for s in spans if s.name == "fasta"]
+    assert span.counts == {"pool_threads": want}
+    assert pool.index["a"][1] == (4 if size == "tiny" else
+                                  pool._data_len)
+
+
 def test_a_block_that_raises_leaves_no_span():
     def work():
         with phases.timed("a"):
