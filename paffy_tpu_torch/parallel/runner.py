@@ -35,8 +35,11 @@ What the workers share, and why it is safe:
   * ``kernels.LAUNCHES`` and ``phases.SECONDS``/``SPANS``: updated under
     locks; a phase's device sync is of the current stream, and its
     seconds are summed over the workers.  While tracing, each worker's
-    spans descend from its group's ``group`` span, and that from the
-    caller's ``run_pipeline`` span, handed to the worker when it starts.
+    spans descend from its group's ``group`` span (ids ``group``,
+    ``records`` and ``length``, the contig length the shards balance on),
+    and that from the caller's ``run_pipeline`` span (counters ``groups``,
+    the call's contig groups, and ``workers``, the threads that ran them,
+    1 when they ran inline), handed to the worker when it starts.
   * ``tile_device.tile_plan``'s and the chain's readbacks, and
     ``devconf.upload``/``download``: on the current stream, through
     PyTorch's pinned host allocator, which is thread-safe and keeps a
@@ -143,13 +146,14 @@ def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
         with phases.timed("split"):
             groups = split_by_contig(t, by_query=by_query)
             lens = t.qlen if by_query else t.tlen
-            shards = assign_shards(groups, [int(lens[g[0]]) for g in groups],
-                                   n_shards)
+            lengths = [int(lens[g[0]]) for g in groups]
+            shards = assign_shards(groups, lengths, n_shards)
         if not groups:
             return t
 
         def run_group(gi: int) -> PafTable:
-            with phases.span("group", group=gi, records=len(groups[gi])):
+            with phases.span("group", group=gi, records=len(groups[gi]),
+                             length=lengths[gi]):
                 with phases.timed("gather"):
                     sub = t.take(groups[gi])
                 return sharded_pipeline_stage(sub, pool, mesh)
@@ -157,7 +161,10 @@ def run_pipeline(t: PafTable, seqs, n_shards: int = 1,
         order = [gi for shard in shards for gi in shard]
         n_workers = min(len(order), int(os.environ.get(
             "PAFFY_TPU_PIPELINE_THREADS", min(os.cpu_count() or 1, 4))))
-        if mesh is None and n_workers > 1:
+        threaded = mesh is None and n_workers > 1
+        phases.count(groups=len(groups),
+                     workers=n_workers if threaded else 1)
+        if threaded:
             outs = map_on_streams(run_group, order, n_workers, pool)
         else:
             outs = [run_group(gi) for gi in order]

@@ -17,8 +17,8 @@ benchmark's traced jobs, or a command under ``PAFFY_TPU_PROFILE``); torch
 is consulted only when it is already loaded, so a host command never
 imports it.  While tracing is on, every phase, and every ``span(name,
 **ids)`` (structure only, not summed: ``run_pipeline`` around the call,
-``group`` around each contig group's stage with ``group`` and ``records``
-as its identifiers), is appended to ``SPANS`` as a ``Span``: its name,
+``group`` around each contig group's stage with ``group``, ``records``
+and ``length`` as its identifiers), is appended to ``SPANS`` as a ``Span``: its name,
 start and end on ``time.perf_counter`` (the clock the benchmark times its
 jobs with), its parent (the enclosing span on its thread, or for a worker
 thread the span its caller handed it, ``handoff``/``adopt``), its thread
@@ -36,7 +36,9 @@ while tracing is on:
     body) and ``devconf.download``, ``to_host_i64`` and ``readback`` (K5's
     plan readbacks among them);
   * ``bytes_up``, ``bytes_down``: bytes across the link in
-    ``devconf.upload`` and in those readbacks, on CUDA only.
+    ``devconf.upload`` and in those readbacks, on CUDA only;
+  * ``groups``, ``workers``: on ``run_pipeline``'s span, the call's
+    contig groups and the threads that ran them (1 when inline).
 
 ``reset`` clears ``SECONDS`` and leaves ``SPANS``: a reader takes the
 spans between its own marks on the same clock.  A block that raises adds
