@@ -204,6 +204,8 @@ _SIGNATURES = (
                           _I64P]),
     ("chain_dp", None, [_LL, _I64P, _I64P, _I64P, _I64P, _I64P, _I64P, _I64P,
                         _I64P, _LL, _LL, _LL, _I64P, _I64P]),
+    ("chain_extract", _LL, [_LL] + [_I64P] * 7 + [_LL, _LL, _LL]
+     + [_I64P] * 3),
     ("trim_tails_apply", None, [_LL, _I64P, _U8P, _I64P, _U8P, ctypes.c_float,
                                 ctypes.c_float, _I64P, _I64P, _I64P, _I64P,
                                 _I64P, _I64P, _LL]),
@@ -890,6 +892,25 @@ def chain_dp(qs, qe, ts, te, score, qe_order, lo, hi, gap_open: int,
                                                 qe_order, lo, hi)),
                  gap_open, gap_extend, max_gap, _p_i64(cs), _p_i64(pred))
     return cs, pred
+
+
+def chain_extract(cs, pred, qs, qe, ts, te, score, gap_open: int,
+                  gap_extend: int, first_id: int):
+    """The greedy extraction of one strand set's chains from its DP's
+    ``cs`` and ``pred`` (processing positions, -1 for none), every array
+    in processing order (impl/chaining.c:88-113, 216-233): (members, ids,
+    scores, next_id), each chain's members head first as processing
+    positions, chain ids from ``first_id`` in extraction order, and each
+    chain's total along its surviving links.  One C pass, the GIL
+    released."""
+    lib = get_lib()
+    n = len(cs)
+    members, ids, scores = (np.empty(n, dtype=np.int64) for _ in range(3))
+    nxt = lib.chain_extract(n, *(_p_i64(_i64(a)) for a in (cs, pred, qs, qe,
+                                                           ts, te, score)),
+                            gap_open, gap_extend, first_id, _p_i64(members),
+                            _p_i64(ids), _p_i64(scores))
+    return members, ids, scores, int(nxt)
 
 
 def _trim_outputs(n):

@@ -1071,6 +1071,77 @@ void chain_dp(long long n,
     }
 }
 
+// Greedy chain extraction of one strand set (ops/chain.paf_chain_order;
+// impl/chaining.c:88-113, 216-233).  Every array is in processing order:
+// cs and pred are the DP's chain score and predecessor (a processing
+// position or -1) of each record.  Records are taken best chain score
+// first, ties latest processed first; each untaken record heads a chain
+// that claims its predecessor links up to the first claimed record.
+// Members are written head first into members_out, with chain ids from
+// first_id on in extraction order, and each chain's total recomputed
+// along its surviving links into scores_out.  Returns the next chain id.
+// Holds no state between calls (worker threads call it at once).
+long long chain_extract(long long n,
+                        const long long* cs, const long long* pred,
+                        const long long* qs, const long long* qe,
+                        const long long* ts, const long long* te,
+                        const long long* score,
+                        long long gap_open, long long gap_extend,
+                        long long first_id,
+                        long long* members_out, long long* ids_out,
+                        long long* scores_out) {
+    // descending (chain score, processing position): a stable LSD radix
+    // sort, a byte a pass, of each score's distance below the largest,
+    // over the positions laid out latest first
+    long long top = LLONG_MIN, bottom = LLONG_MAX;
+    for (long long i = 0; i < n; ++i) {
+        top = std::max(top, cs[i]);
+        bottom = std::min(bottom, cs[i]);
+    }
+    const unsigned long long range =
+        n ? (unsigned long long)top - (unsigned long long)bottom : 0;
+    std::vector<std::pair<unsigned long long, long long>> order(n), tmp(n);
+    for (long long i = 0; i < n; ++i)
+        order[i] = {(unsigned long long)top - (unsigned long long)cs[n - 1 - i],
+                    n - 1 - i};
+    for (int shift = 0; shift < 64 && (range >> shift) != 0; shift += 8) {
+        long long bucket[257] = {0};
+        for (long long i = 0; i < n; ++i)
+            ++bucket[((order[i].first >> shift) & 255) + 1];
+        for (int b = 0; b < 256; ++b) bucket[b + 1] += bucket[b];
+        for (long long i = 0; i < n; ++i)
+            tmp[bucket[(order[i].first >> shift) & 255]++] = order[i];
+        order.swap(tmp);
+    }
+    std::vector<unsigned char> claimed(n, 0);
+    long long w = 0, id = first_id;
+    for (long long k = 0; k < n; ++k) {
+        const long long r = order[k].second;
+        if (claimed[r]) continue;
+        const long long head = w;
+        claimed[r] = 1;
+        members_out[w++] = r;
+        for (long long p = pred[r]; p >= 0 && !claimed[p]; p = pred[p]) {
+            claimed[p] = 1;
+            members_out[w++] = p;
+        }
+        // get_chain_score: a record's score less the cost of the gap to
+        // its predecessor, the gap free when zero
+        long long total = score[members_out[head]];
+        for (long long j = head; j + 1 < w; ++j) {
+            const long long a = members_out[j], b = members_out[j + 1];
+            const long long gap = (qs[a] - qe[b]) + (ts[a] - te[b]);
+            total += score[b] - (gap == 0 ? 0 : gap_open + gap_extend * gap);
+        }
+        for (long long j = head; j < w; ++j) {
+            ids_out[j] = id;
+            scores_out[j] = total;
+        }
+        ++id;
+    }
+    return id;
+}
+
 // Materialize a coverage count array from its +/-1 diff form in one pass:
 // running sum + uint16 saturation (ops/coverage.CoverageMap.counts; the
 // numpy cumsum/minimum/astype chain made 5 full-array trips over a 134M-

@@ -19,7 +19,8 @@ of the group's records sorted by query end (``_window_bounds``).  Chains
 are then taken greedily, best chain score first (ties: latest processed
 first), each walking its predecessor links until a claimed record; members
 are written head first, chain ids in extraction order, and the chain total
-is recomputed along the surviving links (impl/chaining.c:88-113, 216-233).
+is recomputed along the surviving links (impl/chaining.c:88-113, 216-233),
+in one C pass per strand set (native.chain_extract) that releases the GIL.
 
 The DP runs on the device, always: one K6 launch over the groups of both
 strand sets (ops/chain_device.chain_groups_device, arguments from
@@ -36,7 +37,7 @@ from dataclasses import replace
 
 import numpy as np
 
-from paffy_tpu_torch import phases
+from paffy_tpu_torch import native, phases
 from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.core.pafio import paf_check
 from paffy_tpu_torch.ops.chain_device import chain_groups_device
@@ -86,80 +87,60 @@ def dp_arguments(groups, max_gap: int) -> tuple[np.ndarray, ...]:
     return goff, cat(0), cat(2), cat(4), qe_s, te_s, idx_s, lo, w, pos
 
 
-def _gap_cost(qgap, tgap, gap_open, gap_extend):
-    return 0 if qgap + tgap == 0 else gap_open + gap_extend * (qgap + tgap)
-
-
 def _strand_set_groups(t: PafTable, sel, qs, qe, ts, te):
     """The records ``sel`` of one strand set in processing order, grouped
-    by (qname, tname): (idx, perm, goff, groups) with idx[k] the record at
-    processing position k, perm the processing positions group by group
-    (group g at perm[goff[g]:goff[g+1]], in processing order) and groups
-    the (qs, qe, ts, te, score) arrays of each group."""
+    by (qname, tname): (idx, perm, goff, cols, groups) with idx[k] the
+    record at processing position k, perm the processing positions group
+    by group (group g at perm[goff[g]:goff[g+1]], in processing order),
+    cols the set's (qs, qe, ts, te, score) in processing order and groups
+    those of each group."""
     # ascending query start, ties in input order (paf_cmp_by_query_location
-    # with its pointer tiebreak, impl/chaining.c:14-21)
-    idx = sel[np.lexsort((sel, qs[sel]))]
+    # with its pointer tiebreak, impl/chaining.c:14-21; sel ascends)
+    idx = sel[np.argsort(qs[sel], kind="stable")]
+    n = len(idx)
+    # group ids in first-seen order: only the heads of runs of one (qname,
+    # tname) pair are hashed (the object compares check identity, then
+    # length, before any bytes), and each run takes its head's id
+    qn, tn = t.qname[idx], t.tname[idx]
+    head = np.ones(n, dtype=bool)
+    head[1:] = (qn[1:] != qn[:-1]) | (tn[1:] != tn[:-1])
+    heads = np.flatnonzero(head)
+    phases.count(key_runs=len(heads))
     keys: dict = {}
-    gid = np.fromiter((keys.setdefault(k, len(keys)) for k in
-                       zip(t.qname[idx].tolist(), t.tname[idx].tolist())),
-                      dtype=np.int64, count=len(idx))
+    run_gid = np.array([keys.setdefault(k, len(keys)) for k in
+                        zip(qn[heads].tolist(), tn[heads].tolist())],
+                       dtype=np.int64)
+    gid = np.repeat(run_gid, np.diff(heads, append=n))
     perm = np.argsort(gid, kind="stable")
     goff = np.zeros(len(keys) + 1, dtype=np.int64)
     np.cumsum(np.bincount(gid, minlength=len(keys)), out=goff[1:])
     cols = [a[idx] for a in (qs, qe, ts, te, t.score)]
     groups = [tuple(c[perm[a:b]] for c in cols)
               for a, b in zip(goff[:-1], goff[1:])]
-    return idx, perm, goff, groups
+    return idx, perm, goff, cols, groups
 
 
-def _extract_chains(t: PafTable, idx, perm, goff, results, qs, qe, ts, te,
-                    gap_open: int, gap_extend: int, chain_id_start: int):
+def _extract_set(idx, perm, goff, cols, results, gap_open: int,
+                 gap_extend: int, first_id: int):
     """The chains of one strand set from its groups' DP ``results`` (a list
     of (chain_score, pred) per group of ``_strand_set_groups``' (idx,
-    perm, goff)): (the records in output order, their chain ids, their
-    chain scores, the next chain id)."""
+    perm, goff, cols)), by native.chain_extract: (the records in output
+    order, their chain ids, their chain scores, the next chain id)."""
     n = len(idx)
     if n == 0:
-        return (np.zeros(0, dtype=np.int64),) * 3 + (chain_id_start,)
-    # each group's results back to processing positions
+        return (np.zeros(0, dtype=np.int64),) * 3 + (first_id,)
+    # the groups' results back to processing positions; a group-local
+    # predecessor is a slot of its group in perm
     cs = np.empty(n, dtype=np.int64)
-    pred = np.full(n, -1, dtype=np.int64)
-    for (gcs, gpred), a, b in zip(results, goff[:-1], goff[1:]):
-        members = perm[a:b]
-        cs[members] = gcs
-        pred[members] = np.where(gpred >= 0,
-                                 members[np.clip(gpred, 0, None)], -1)
-    sqs, sqe, sts, ste, sscore = (
-        a[idx].tolist() for a in (qs, qe, ts, te, t.score))
-    pred_l = pred.tolist()
-    claimed = [False] * n
-    members_out: list[int] = []
-    ids_out: list[int] = []
-    scores_out: list[int] = []
-    next_id = chain_id_start
-    # greedy extraction, best chain score first (ties: latest processed)
-    for r in np.lexsort((-np.arange(n), -cs)).tolist():
-        if claimed[r]:
-            continue
-        members = [r]
-        claimed[r] = True
-        p = pred_l[r]
-        while p >= 0 and not claimed[p]:
-            claimed[p] = True
-            members.append(p)
-            p = pred_l[p]
-        # the total along the surviving links (get_chain_score)
-        total = sscore[members[0]]
-        for a, b in zip(members[:-1], members[1:]):
-            total += sscore[b] - _gap_cost(sqs[a] - sqe[b], sts[a] - ste[b],
-                                           gap_open, gap_extend)
-        members_out += members
-        ids_out += [next_id] * len(members)
-        scores_out += [total] * len(members)
-        next_id += 1
-    return (idx[np.array(members_out, dtype=np.int64)],
-            np.array(ids_out, dtype=np.int64),
-            np.array(scores_out, dtype=np.int64), next_id)
+    pred = np.empty(n, dtype=np.int64)
+    gpred = np.concatenate([p for _, p in results])
+    slot = np.maximum(gpred, 0) + np.repeat(goff[:-1], np.diff(goff))
+    cs[perm] = np.concatenate([c for c, _ in results])
+    pred[perm] = np.where(gpred >= 0, perm[slot], -1)
+    members, ids, scores, nxt = native.chain_extract(
+        cs, pred, *cols, gap_open, gap_extend, first_id)
+    phases.count(records=n, chains=nxt - first_id)
+    return idx[members], ids, scores, nxt
 
 
 def _chain_coordinates(t: PafTable, pct_trim: float):
@@ -185,7 +166,7 @@ def chain_groups(t: PafTable, pct_trim: float = 1.0) -> list[list[tuple]]:
     ``paf_chain_order`` hands them, '+' first, to one K6 launch (for checks
     against the C DP)."""
     coords = _chain_coordinates(t, pct_trim)
-    return [_strand_set_groups(t, sel, *coords)[3]
+    return [_strand_set_groups(t, sel, *coords)[-1]
             for sel in (np.flatnonzero(t.strand), np.flatnonzero(~t.strand))]
 
 
@@ -222,13 +203,12 @@ def paf_chain_order(t: PafTable, gap_open: int = 5000, gap_extend: int = 1,
                             np.flatnonzero(~t.strand))]
     # one DP call over both strand sets' groups, '+' first
     results = (dp_many or chain_groups_device)(
-        [g for s in sets for g in s[3]], gap_open, gap_extend, max_gap)
+        [g for s in sets for g in s[-1]], gap_open, gap_extend, max_gap)
     outs, nxt = [], 0
     with phases.timed("extract"):
-        for idx, perm, goff, groups in sets:
-            *out, nxt = _extract_chains(t, idx, perm, goff,
-                                        results[: len(groups)], *coords,
-                                        gap_open, gap_extend, nxt)
+        for *grouping, groups in sets:
+            *out, nxt = _extract_set(*grouping, results[: len(groups)],
+                                     gap_open, gap_extend, nxt)
             results = results[len(groups):]
             outs.append(out)
     order, ids, scores = (np.concatenate(x) for x in zip(*outs))

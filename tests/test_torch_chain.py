@@ -15,6 +15,7 @@ import os
 import pathlib
 import subprocess
 import sys
+from dataclasses import replace
 
 import numpy as np
 import pytest
@@ -248,6 +249,158 @@ def test_chain_groups_are_paffy_tpus():
         assert sum(len(g[0]) for g in groups) == len(sel)
         assert_dp_matches_paffy_tpu(groups, chip_smoke.CHAIN_COSTS,
                                     jax_scan=False)
+
+
+# --------------------------- the native extraction and the group keys
+
+def paf_line(qname, qs, m, strand, tname, ts, score, qlen=10**6,
+             tlen=10**6):
+    """A gapless record: query [qs, qs + m), target [ts, ts + m)."""
+    return (f"{qname}\t{qlen}\t{qs}\t{qs + m}\t{strand}\t{tname}\t{tlen}"
+            f"\t{ts}\t{ts + m}\t{m}\t{m}\t60\tAS:i:{score}\tcg:Z:{m}M")
+
+
+def dense_lines(rng, n, pairs, span=80, max_len=6, scores=(4, 8)):
+    """``n`` short records on few coordinates and scores, so that chain
+    scores tie and predecessors are shared: the pair of each record drawn
+    from ``pairs``, strands from both."""
+    out = []
+    for _ in range(n):
+        q, tn = pairs[int(rng.integers(len(pairs)))]
+        out.append(paf_line(q, int(rng.integers(0, span)),
+                            int(rng.integers(1, max_len)),
+                            "+-"[int(rng.integers(2))], tn,
+                            int(rng.integers(0, span)),
+                            int(rng.choice(scores))))
+    return out
+
+
+def extraction_case(label):
+    """(PAF lines, costs) of a case built to stress the extraction order."""
+    rng = np.random.default_rng(sum(map(ord, label)))
+    if label == "equal scores across groups and strands":
+        # records too far apart to link: every chain score is 7, the
+        # order is the processing order's, latest first
+        return [paf_line(f"q{g}", 1000 * k + 10 * g, 5, s, f"t{g % 2}",
+                         3000 * k, 7) for k in range(4) for g in range(3)
+                for s in "+-"], (100, 1, 50)
+    if label == "predecessor chains cut by earlier claims":
+        # C (27) claims A before B (15) reaches it: B is a chain of its
+        # own; the dense records, in another pair, tie and share
+        return ([paf_line("a", 0, 10, "+", "b", 0, 10),
+                 paf_line("a", 12, 10, "+", "b", 12, 10),
+                 paf_line("a", 11, 20, "+", "b", 11, 20)]
+                + dense_lines(rng, 150, [("q", "t")])), (1, 1, 30)
+    if label == "links with zero gap":
+        return ([paf_line("a", 10 * k, 10, "+", "b", 10 * k, 3)
+                 for k in range(6)]
+                + dense_lines(rng, 80, [("q", "t")], span=30)), (5, 2, 40)
+    if label == "mirrored '-' records":
+        # down the query, up the target: in mirrored coordinates each
+        # abuts the last
+        return ([paf_line("a", 100 - 10 * k, 10, "-", "b", 10 * k, 6)
+                 for k in range(5)]
+                + [x for x in dense_lines(rng, 150, [("q", "t")])
+                   if "\t-\t" in x]), (2, 1, 30)
+    if label == "many groups":
+        pairs = [(f"q{i}", f"t{j}") for i in range(6) for j in range(5)]
+        return dense_lines(rng, 400, pairs), (3, 1, 40)
+    if label == "no record":
+        return [], (5000, 1, 10**6)
+    assert label == "one record"
+    return [paf_line("q", 5, 20, "-", "t", 9, 40)], (5000, 1, 10**6)
+
+
+EXTRACTION_CASES = ["equal scores across groups and strands",
+                    "predecessor chains cut by earlier claims",
+                    "links with zero gap", "mirrored '-' records",
+                    "many groups", "no record", "one record"]
+
+
+@pytest.mark.parametrize("label", EXTRACTION_CASES)
+def test_native_extraction_matches_paffy_tpu_on_ties(label):
+    lines, (gap_open, gap_extend, max_gap) = extraction_case(label)
+    text = "".join(x + "\n" for x in lines)
+    t, r = pafio.parse_paf_text(text), ref_pafio.parse_paf_text(text)
+    # untrimmed, so that the records abut and link as built
+    kw = dict(gap_open=gap_open, gap_extend=gap_extend, max_gap=max_gap,
+              pct_trim=0.0)
+    tagged, perm = chain.paf_chain_order(t, **kw)
+    want, want_perm = ref_chain.paf_chain_order(r, **kw)
+    if not lines:
+        assert perm is None and want_perm is None
+        return
+    np.testing.assert_array_equal(perm, want_perm)
+    np.testing.assert_array_equal(tagged.chain_id, want.chain_id)
+    np.testing.assert_array_equal(tagged.chain_score, want.chain_score)
+    assert tagged.chain_id.dtype == tagged.chain_score.dtype == np.int64
+    if label == "equal scores across groups and strands":
+        assert (tagged.chain_score == 7).all()
+        assert len(np.unique(tagged.chain_id)) == len(t)
+    if label == "predecessor chains cut by earlier claims":
+        # A and C one chain of 10 + 20 - 3, B alone with its own score
+        assert tagged.chain_id[0] == tagged.chain_id[2] != tagged.chain_id[1]
+        assert tagged.chain_score[:3].tolist() == [27, 10, 27]
+    if label in ("links with zero gap", "mirrored '-' records"):
+        # the abutting records are one chain, its links free
+        k = 6 if label == "links with zero gap" else 5
+        assert len(set(tagged.chain_id[:k].tolist())) == 1
+        assert tagged.chain_score[0] == k * int(t.score[0])
+
+
+def name_case(label):
+    """(PAF lines, the port's table) of a case of the group keys."""
+    rng = np.random.default_rng(sum(map(ord, label)))
+    if label == "interleaved pairs":
+        lines = [paf_line("A", 3 * k, 5, "+-"[k % 3 == 0], "BC"[k % 2],
+                          int(rng.integers(0, 90)), 9) for k in range(60)]
+    elif label == "a name changing on every record":
+        lines = [paf_line(f"q{k}", int(rng.integers(0, 90)), 5, "+-"[k % 2],
+                          "t", int(rng.integers(0, 90)), 9)
+                 for k in range(60)]
+    else:
+        lines = dense_lines(rng, 120, [("anc.chr1", "des.chr1")])
+    text = "".join(x + "\n" for x in lines)
+    t = pafio.parse_paf_text(text)
+    if label == "equal names in distinct str objects":
+        fresh = np.empty(len(t), dtype=object)
+        fresh[:] = ["".join(list(x)) for x in t.qname]
+        assert fresh[0] is not fresh[1] and fresh[0] == fresh[1]
+        t = replace(t, qname=fresh)
+    if label == "one str object for every name":
+        same = np.empty(len(t), dtype=object)
+        same[:] = [t.qname[0]] * len(t)
+        t = replace(t, qname=same)
+    return text, t
+
+
+NAME_CASES = ["interleaved pairs", "equal names in distinct str objects",
+              "one str object for every name",
+              "a name changing on every record", "a single pair"]
+
+
+@pytest.mark.parametrize("label", NAME_CASES)
+def test_chain_groups_are_paffy_tpus_on_name_runs(label):
+    text, t = name_case(label)
+    r = ref_pafio.parse_paf_text(text)
+    seen = []
+
+    def dp_many(groups, *costs):
+        seen.append(groups)
+        return [ref_chain._dp_numpy(*g, *costs) for g in groups]
+    want, want_perm = ref_chain.paf_chain_order(r, dp_many=dp_many)
+    got = chain.chain_groups(t)
+    assert len(seen) == 2 and [len(g) for g in got] == [len(g) for g in seen]
+    for mine, theirs in zip(got, seen):
+        for g, h in zip(mine, theirs):
+            for a, b in zip(g, h):
+                np.testing.assert_array_equal(a, b)
+    tagged, perm = chain.paf_chain_order(t)
+    np.testing.assert_array_equal(perm, want_perm)
+    np.testing.assert_array_equal(tagged.chain_id, want.chain_id)
+    np.testing.assert_array_equal(tagged.chain_score, want.chain_score)
+    if label == "interleaved pairs":
+        assert [len(g) for g in got] == [2, 2]
 
 
 @pytest.fixture(scope="module")

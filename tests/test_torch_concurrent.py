@@ -6,7 +6,8 @@ port's serial run, and stay the same over repeated runs; a failing group
 raises paffy_tpu's error, that of the first failing group in run order;
 one worker and a mesh take the serial loop; and the shared state the
 workers reach (phases.SECONDS, kernels.LAUNCHES, SequencePool.ext) counts
-and builds exactly once when threads use it at once."""
+and builds exactly once when threads use it at once; paf_chain on four
+threads at once gives the bytes of one."""
 
 import os
 import sys
@@ -22,7 +23,7 @@ from paffy_tpu.core.fasta import read_fasta
 from paffy_tpu.parallel import runner as ref_runner
 from paffy_tpu_torch import kernels, native, phases
 from paffy_tpu_torch.core import pafio
-from paffy_tpu_torch.ops import mismatch
+from paffy_tpu_torch.ops import chain, mismatch
 from paffy_tpu_torch.ops.mismatch_device import build_ext_pool_plain
 from paffy_tpu_torch.ops.mismatch import SequencePool
 from paffy_tpu_torch.parallel import runner
@@ -316,3 +317,33 @@ def test_genome_run_pipeline_matches_paffy_tpu(monkeypatch, tmp_path):
         monkeypatch.setenv(THREADS_ENV, str(n_workers))
         outs.add(port_run(fa, data))
     assert outs == {ref_run(fa, data)}
+
+
+def test_paf_chain_on_four_threads_gives_one_threads_bytes(grid_genome):
+    """paf_chain on four threads at once, each on the whole table or on
+    one contig group, three times over, gives the bytes of one thread: the
+    native extraction, which runs without the GIL, keeps no state between
+    calls."""
+    _, data = grid_genome
+    t = pafio.parse_paf_data(data)
+    groups = sorted(runner.split_by_contig(t), key=len)[-3:]
+    tables = [t] + [t.take(g) for g in groups]
+
+    def chained(x):
+        return bytes(pafio.serialize_paf_bytes(chain.paf_chain(x)))
+    want = [chained(x) for x in tables]
+    start = threading.Barrier(len(tables), timeout=60)
+    got = [None] * len(tables)
+
+    def work(k):
+        start.wait()
+        got[k] = [chained(tables[k]) for _ in range(3)]
+    threads = [threading.Thread(target=work, args=(k,))
+               for k in range(len(tables))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300)
+    assert not any(th.is_alive() for th in threads)
+    assert got == [[w] * 3 for w in want]
+    assert all(b"cn:i:" in w for w in want)

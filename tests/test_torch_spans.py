@@ -9,6 +9,8 @@ the output bytes are those of an untraced run.  With the profiler off no
 span is recorded and ``SECONDS`` holds the same phases.  add_mismatches
 and view through paffy_main nest no phase in one of its own name; the
 counters go to the innermost open span, and nowhere with tracing off;
+the chain's ``extract`` counts its records and chains, its ``window`` the
+runs of names it hashed;
 PAFFY_TPU_PROFILE's profiler, of every thread, holds the workers' spans;
 and a host command still loads no torch."""
 
@@ -26,6 +28,7 @@ import chip_smoke
 from paffy_tpu_torch import native, phases
 from paffy_tpu_torch.cli import paffy_main
 from paffy_tpu_torch.core import pafio
+from paffy_tpu_torch.ops import chain
 from paffy_tpu_torch.ops.mismatch import SequencePool
 from paffy_tpu_torch.parallel import runner
 from paffy_tpu_torch.utils import logging as plog
@@ -230,6 +233,25 @@ def test_fasta_span_counts_pool_threads(tmp_path, size):
     assert span.counts == {"pool_threads": want}
     assert pool.index["a"][1] == (4 if size == "tiny" else
                                   pool._data_len)
+
+
+def test_chain_spans_count_records_chains_and_key_runs(pair):
+    """A traced paf_chain_order on one (qname, tname) pair: its ``extract``
+    span counts the records and the chains of the native pass, its
+    ``window`` span one run of names hashed per strand set."""
+    _, paf = pair
+    with open(paf, "rb") as fh:
+        t = pafio.parse_paf_data(fh.read())
+    assert len(set(zip(t.qname, t.tname))) == 1
+    assert set(t.strand.tolist()) == {True, False}
+    (tagged, _), spans, seconds = traced(lambda: chain.paf_chain_order(t))
+    check_tree(spans, seconds)
+    (extract,) = [s for s in spans if s.name == "extract"]
+    assert extract.counts == {"records": len(t),
+                              "chains": len(set(tagged.chain_id.tolist()))}
+    # the grouping's window and the DP arguments' (ops.chain_device)
+    keyed = [s.counts for s in spans if s.name == "window" and s.counts]
+    assert keyed == [{"key_runs": 2}]
 
 
 def test_a_block_that_raises_leaves_no_span():
