@@ -33,13 +33,15 @@ from paffy_tpu_torch.utils.logging import log_info
 def _dechunk_side(names, starts, ends, lengths):
     """One side's ``name|length|start`` names decoded and its coordinates
     shifted by the start (convertCoordinatesP, impl/paf_dechunk.c:24-38);
-    each distinct name is decoded once."""
-    uniq, inv = np.unique(names, return_inverse=True)
-    ivs = [decode_header(nm) for nm in uniq]
-    shift = np.array([iv.start for iv in ivs], dtype=np.int64)[inv]
-    return (_as_obj_array([iv.name for iv in ivs])[inv], starts + shift,
+    each distinct name is decoded once, in sorted order, so that of two
+    undecodable names the same one raises as in paffy_tpu."""
+    ids, uniq, _ = native.first_seen_ids(names)
+    decoded = {nm: decode_header(nm) for nm in sorted(uniq)}
+    ivs = [decoded[nm] for nm in uniq]
+    shift = np.array([iv.start for iv in ivs], dtype=np.int64)[ids]
+    return (_as_obj_array([iv.name for iv in ivs])[ids], starts + shift,
             ends + shift, np.array([iv.length for iv in ivs],
-                                   dtype=np.int64)[inv])
+                                   dtype=np.int64)[ids])
 
 
 def dechunk_main(argv) -> int:
@@ -89,17 +91,20 @@ def _upconvert_side(intervals, names, starts, ends, lengths):
     lies in a fragment ([start, end], ends inclusive) is renamed to the
     fragment's ``name|length|start``; one that starts in a fragment and
     ends past it raises; one in no fragment stays as it is.  One
-    searchsorted per distinct name."""
+    searchsorted per distinct name, the names in sorted order, so that of
+    two crossing names the same one raises as in paffy_tpu."""
     new_names = np.array(names, dtype=object)
     new_starts = starts.copy()
     new_ends = ends.copy()
     new_lens = lengths.copy()
-    uniq, inv = np.unique(names, return_inverse=True)
-    for u_i, nm in enumerate(uniq):
+    ids, uniq, _ = native.first_seen_ids(names)
+    perm, goff = native.id_groups(ids, len(uniq))
+    for u_i in sorted(range(len(uniq)), key=uniq.__getitem__):
+        nm = uniq[u_i]
         frags = intervals.get(nm)
         if not frags:
             continue
-        sel = np.flatnonzero(inv == u_i)
+        sel = perm[goff[u_i]: goff[u_i + 1]]
         fs = np.array([f[0] for f in frags], dtype=np.int64)
         fe = np.array([f[1] for f in frags], dtype=np.int64)
         fl = np.array([f[2] for f in frags], dtype=np.int64)
@@ -195,29 +200,30 @@ def split_file_main(argv) -> int:
             total += len(t)
             names = t.qname if args.query else t.tname
             lengths = t.qlen if args.query else t.tlen
-            by_file: dict[str, list[int]] = {}    # in first-record order
-            for i in range(len(t)):
-                nm = names[i]
-                path = contig_file.get(nm)
-                if path is None:
-                    ln = int(lengths[i])
-                    if 0 < args.minLength and ln < args.minLength:
-                        if (small_path is None
-                                or small_total + ln > args.minLength):
-                            small_path = (f"{args.prefix}small_"
-                                          f"{small_idx}.paf")
-                            small_idx += 1
-                            small_total = 0
-                            log_info("Opened small contigs output file: %s",
-                                     small_path)
-                        small_total += ln
-                        path = small_path
-                    else:
-                        path = f"{args.prefix}{nm.replace('/', '_')}.paf"
-                        log_info("Opened output file: %s", path)
-                    contig_file[nm] = path
-                by_file.setdefault(path, []).append(i)
-            for path, rows in by_file.items():
+            ids, contigs, _ = native.first_seen_ids(names)
+            first_lens = lengths[native.first_rows(ids)].tolist()
+            for nm, ln in zip(contigs, first_lens):
+                if nm in contig_file:
+                    continue
+                if 0 < args.minLength and ln < args.minLength:
+                    if (small_path is None
+                            or small_total + ln > args.minLength):
+                        small_path = f"{args.prefix}small_{small_idx}.paf"
+                        small_idx += 1
+                        small_total = 0
+                        log_info("Opened small contigs output file: %s",
+                                 small_path)
+                    small_total += ln
+                    path = small_path
+                else:
+                    path = f"{args.prefix}{nm.replace('/', '_')}.paf"
+                    log_info("Opened output file: %s", path)
+                contig_file[nm] = path
+            # the files in first-record order, each with its records
+            fids, paths, _ = native.first_seen_ids(
+                [contig_file[nm] for nm in contigs])
+            perm, goff = native.id_groups(fids[ids], len(paths))
+            for f, path in enumerate(paths):
                 fh = handles.get(path)
                 if fh is None:
                     # each file has its own stdio blocks, as the
@@ -226,7 +232,7 @@ def split_file_main(argv) -> int:
                     fh = handles[path] = GlibcWriter(open(path, "wb"),
                                                      owns=True)
                 fh.write(pafio.serialize_paf_bytes(
-                    t.take(np.array(rows, dtype=np.int64))))
+                    t.take(perm[goff[f]: goff[f + 1]])))
     finally:
         for fh in handles.values():
             fh.close()

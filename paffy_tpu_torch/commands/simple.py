@@ -302,14 +302,14 @@ class DedupeState:
         n = len(t)
         if n == 0:
             return np.zeros(0, dtype=bool), None
-        # names to ids through one unique pass: only distinct names touch
-        # the dict, which keeps the ids stable across batches
-        both = np.concatenate([t.qname, t.tname])
-        uniq_names, inv = np.unique(both, return_inverse=True)
+        # only distinct names touch the dict, which keeps the ids stable
+        # across batches
+        local, names, _ = native.first_seen_ids(
+            np.concatenate([t.qname, t.tname]))
         gids = np.fromiter((self.name_id.setdefault(nm, len(self.name_id))
-                            for nm in uniq_names),
-                           dtype=np.int64, count=len(uniq_names))
-        ids = gids[inv]
+                            for nm in names),
+                           dtype=np.int64, count=len(names))
+        ids = gids[local]
         qid, tid = ids[:n], ids[n:]
 
         def as_void(cols):

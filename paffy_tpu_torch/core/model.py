@@ -191,12 +191,9 @@ class PafTable:
     def name_ids(self) -> tuple[np.ndarray, np.ndarray, list[str]]:
         """(query ids, target ids, names): (qname, tname) factorized over
         one name list in order of first appearance, a record's query before
-        its target.  One dictionary pass over the names, in C."""
+        its target (native.first_seen_ids)."""
         both = np.empty(2 * len(self), dtype=object)
         both[0::2] = self.qname
         both[1::2] = self.tname
-        seq = both.tolist()
-        names = list(dict.fromkeys(seq))
-        ids = np.fromiter(map(dict(zip(names, range(len(names)))).__getitem__,
-                              seq), dtype=np.int64, count=len(seq))
+        ids, names, _ = native.first_seen_ids(both)
         return ids[0::2].copy(), ids[1::2].copy(), names

@@ -393,39 +393,57 @@ def parse_paf_bytes_raw(data: bytes, validate_cigars: bool = False):
     return ints, flags, rtype, qnames, tnames, cg_start, cg_len
 
 
+def first_seen_ids(*cols):
+    """The rows of the equal-length name columns ``cols`` numbered in order
+    of first appearance: (ids, keys, n_runs), ids[i] the int64 id of row
+    i, keys the distinct rows in id order (tuples, or names for one
+    column) and n_runs the number of runs of equal rows.  Each row is
+    compared with the one before it and only run heads are hashed, so
+    names that come in runs cost one compare a row.  The one place where
+    the port turns record names into ids."""
+    cols = [np.asarray(c, dtype=object) for c in cols]
+    n = len(cols[0])
+    head = np.zeros(n, dtype=bool)
+    head[:1] = True
+    for c in cols:
+        head[1:] |= c[1:] != c[:-1]
+    heads = np.flatnonzero(head)
+    at = [c[heads].tolist() for c in cols]
+    index: dict = {}
+    run_ids = np.fromiter(
+        (index.setdefault(k, len(index))
+         for k in (at[0] if len(cols) == 1 else zip(*at))),
+        dtype=np.int64, count=len(heads))
+    return (np.repeat(run_ids, np.diff(heads, append=n)), list(index),
+            len(heads))
+
+
+def first_rows(ids: np.ndarray) -> np.ndarray:
+    """The row at which each id of ``first_seen_ids`` first appears."""
+    return np.flatnonzero(np.diff(np.maximum.accumulate(ids), prepend=-1))
+
+
+def id_groups(ids: np.ndarray, n_ids: int):
+    """(perm, goff): the rows grouped by id, group g at
+    perm[goff[g]:goff[g+1]], each ascending."""
+    perm = np.argsort(ids, kind="stable")
+    goff = np.zeros(n_ids + 1, dtype=np.int64)
+    np.cumsum(np.bincount(ids, minlength=n_ids), out=goff[1:])
+    return perm, goff
+
+
 def _name_pool(qnames, tnames):
-    """NUL-separated name pool and per-record offsets for the formatters.
-    Each distinct name is encoded once, and runs of equal consecutive
-    names share one dictionary probe."""
-    pool_off: dict[str, int] = {}
-    parts = []
-    pos = 0
-
-    def off_of(name: str) -> int:
-        nonlocal pos
-        o = pool_off.get(name)
-        if o is None:
-            enc = name.encode("latin-1")
-            pool_off[name] = o = pos
-            parts.append(enc)
-            pos += len(enc) + 1
-        return o
-
-    def offsets(names) -> np.ndarray:
-        n = len(names)
-        if n == 0:
-            return np.empty(0, dtype=np.int64)
-        change = np.empty(n, dtype=bool)
-        change[0] = True
-        np.not_equal(names[1:], names[:-1], out=change[1:])
-        idx = np.flatnonzero(change)
-        vals = np.fromiter((off_of(names[i]) for i in idx),
-                           dtype=np.int64, count=len(idx))
-        return np.repeat(vals, np.diff(np.append(idx, n)))
-
-    qoff = offsets(qnames)
-    toff = offsets(tnames)
-    return b"\0".join(parts) + b"\0", qoff, toff
+    """NUL-separated name pool and per-record offsets for the formatters:
+    each side's distinct names encoded once, the query side's first."""
+    parts, offs, pos = [], [], 0
+    for names in (qnames, tnames):
+        ids, keys, _ = first_seen_ids(names)
+        enc = [k.encode("latin-1") for k in keys]
+        size = np.fromiter(map(len, enc), dtype=np.int64, count=len(enc)) + 1
+        offs.append((pos + np.cumsum(size) - size)[ids])
+        parts += enc
+        pos += int(size.sum())
+    return b"\0".join(parts) + b"\0", offs[0], offs[1]
 
 
 def pack_ints13(cols, n_threads: int | None = None):
@@ -532,13 +550,13 @@ def view_render_batch(t, pool, stat_blob: bytes | None):
     (paf_pretty_print2, impl/paf.c:282-314), as a uint8 array."""
     lib = get_lib()
     n = len(t)
-    qpo, tpo, qsl, tsl = (np.empty(n, dtype=np.int64) for _ in range(4))
-    g = pool._guard
-    for i in range(n):
-        o, ln = pool.index[t.qname[i]]
-        qpo[i], qsl[i] = o + g, ln
-        o, ln = pool.index[t.tname[i]]
-        tpo[i], tsl[i] = o + g, ln
+
+    def entries(names):
+        ids, keys, _ = first_seen_ids(names)
+        entry = np.array([pool.index[k] for k in keys],
+                         dtype=np.int64).reshape(-1, 2)
+        return entry[ids, 0] + pool._guard, entry[ids, 1]
+    (qpo, qsl), (tpo, tsl) = entries(t.qname), entries(t.tname)
     if stat_blob is not None:
         nl = np.flatnonzero(np.frombuffer(stat_blob, dtype=np.uint8)
                             == ord("\n"))

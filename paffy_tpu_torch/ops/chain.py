@@ -97,23 +97,9 @@ def _strand_set_groups(t: PafTable, sel, qs, qe, ts, te):
     # ascending query start, ties in input order (paf_cmp_by_query_location
     # with its pointer tiebreak, impl/chaining.c:14-21; sel ascends)
     idx = sel[np.argsort(qs[sel], kind="stable")]
-    n = len(idx)
-    # group ids in first-seen order: only the heads of runs of one (qname,
-    # tname) pair are hashed (the object compares check identity, then
-    # length, before any bytes), and each run takes its head's id
-    qn, tn = t.qname[idx], t.tname[idx]
-    head = np.ones(n, dtype=bool)
-    head[1:] = (qn[1:] != qn[:-1]) | (tn[1:] != tn[:-1])
-    heads = np.flatnonzero(head)
-    phases.count(key_runs=len(heads))
-    keys: dict = {}
-    run_gid = np.array([keys.setdefault(k, len(keys)) for k in
-                        zip(qn[heads].tolist(), tn[heads].tolist())],
-                       dtype=np.int64)
-    gid = np.repeat(run_gid, np.diff(heads, append=n))
-    perm = np.argsort(gid, kind="stable")
-    goff = np.zeros(len(keys) + 1, dtype=np.int64)
-    np.cumsum(np.bincount(gid, minlength=len(keys)), out=goff[1:])
+    gid, keys, key_runs = native.first_seen_ids(t.qname[idx], t.tname[idx])
+    phases.count(key_runs=key_runs)
+    perm, goff = native.id_groups(gid, len(keys))
     cols = [a[idx] for a in (qs, qe, ts, te, t.score)]
     groups = [tuple(c[perm[a:b]] for c in cols)
               for a, b in zip(goff[:-1], goff[1:])]

@@ -61,13 +61,11 @@ class CoverageMap:
         lengths = np.asarray(lengths, dtype=np.int64)
         if len(names) == 0:
             return np.empty(0, dtype=np.int64)
-        uniq, first, inv = np.unique(names, return_index=True,
-                                     return_inverse=True)
-        for j in np.argsort(first, kind="stable").tolist():
-            self._get(uniq[j], int(lengths[first[j]]))
-        base = np.fromiter((self._idx[nm] for nm in uniq),
-                           dtype=np.int64, count=len(uniq))
-        idx = base[inv]
+        ids, keys, _ = native.first_seen_ids(names)
+        lens = lengths[native.first_rows(ids)].tolist()
+        base = np.fromiter((self._get(nm, ln) for nm, ln in zip(keys, lens)),
+                           dtype=np.int64, count=len(keys))
+        idx = base[ids]
         reg = np.asarray(self.lengths, dtype=np.int64)[idx]
         off = np.flatnonzero(reg != lengths)
         if len(off):

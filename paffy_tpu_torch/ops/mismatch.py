@@ -123,30 +123,34 @@ class SequencePool:
         return self._pool_np[g + off: g + off + ln]
 
     def offsets_for(self, names: np.ndarray, role: str) -> np.ndarray:
-        """Guarded pool offset of each named sequence; KeyError with the
-        reference's message for a missing one."""
-        out = np.empty(len(names), dtype=np.int64)
-        for i, n in enumerate(names):
+        """Guarded pool offset of each named sequence, one dictionary probe
+        per distinct name; KeyError with the reference's message for the
+        missing name of the lowest record."""
+        ids, keys, _ = native.first_seen_ids(names)
+        off = np.empty(len(keys), dtype=np.int64)
+        for k, n in enumerate(keys):
             entry = self.index.get(n)
             if entry is None:
                 raise KeyError(f"No {role} sequence named: {n} found")
-            out[i] = entry[0] + self._guard
-        return out
+            off[k] = entry[0] + self._guard
+        return off[ids]
 
     def first_missing_seq(self, t: PafTable):
         """(record, role, name) of the first record whose query (checked
         first, the reference's fetch order) or target sequence is not in
         the pool; (-1, None, None) when all resolve.  One dictionary probe
-        per distinct name."""
-        known: dict = {}
-        for i in range(len(t)):
-            for role, name in (("query", t.qname[i]), ("target", t.tname[i])):
-                ok = known.get(name)
-                if ok is None:
-                    ok = known[name] = name in self.index
-                if not ok:
-                    return i, role, name
-        return -1, None, None
+        per distinct name of each side."""
+        q, tg = self._missing(t.qname), self._missing(t.tname)
+        bad = np.flatnonzero(q | tg)
+        if len(bad) == 0:
+            return -1, None, None
+        i = int(bad[0])
+        return (i, "query", t.qname[i]) if q[i] else (i, "target", t.tname[i])
+
+    def _missing(self, names) -> np.ndarray:
+        ids, keys, _ = native.first_seen_ids(names)
+        return ~np.fromiter((k in self.index for k in keys), dtype=bool,
+                            count=len(keys))[ids]
 
     @property
     def ext(self) -> torch.Tensor:

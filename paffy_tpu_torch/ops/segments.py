@@ -30,12 +30,6 @@ def bucket_size(n: int, minimum: int = 256) -> int:
     return b
 
 
-def pad_to(a: np.ndarray, size: int, fill=0) -> np.ndarray:
-    out = np.full(size, fill, dtype=a.dtype)
-    out[: len(a)] = a
-    return out
-
-
 @dataclass
 class MColumnBatch:
     """All alignment columns of the M runs of a batch.

@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from paffy_tpu_torch import devconf, phases
+from paffy_tpu_torch import devconf, native, phases
 from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.ops.coverage import (EMPTY_TILE_LEVEL, SATURATION,
                                           match_intervals)
@@ -45,19 +45,16 @@ def sweep_arguments(t: PafTable):
     arguments for ``t``, the arena laid out by first-seen query name.
     Raises ValueError when one query name comes with two lengths."""
     n = len(t)
-    names, first, inv = np.unique(t.qname, return_index=True,
-                                  return_inverse=True)
-    qlen = t.qlen[first]
-    bad = np.flatnonzero(t.qlen != qlen[inv])
+    ids, _, _ = native.first_seen_ids(t.qname)
+    qlen = t.qlen[native.first_rows(ids)]
+    bad = np.flatnonzero(t.qlen != qlen[ids])
     if len(bad):
         raise ValueError(f"query {t.qname[bad[0]]!r} has inconsistent "
                          f"lengths")
-    seen = np.argsort(first, kind="stable")      # names in first-seen order
-    off = np.zeros(len(names), dtype=np.int64)
-    off[seen] = np.cumsum(qlen[seen]) - qlen[seen]
     rec, istart, iend = match_intervals(t)
     run_off = np.searchsorted(rec, np.arange(n + 1)).astype(np.int64)
-    return off[inv], run_off, istart, iend, int(qlen.sum())
+    return ((np.cumsum(qlen) - qlen)[ids], run_off, istart, iend,
+            int(qlen.sum()))
 
 
 def assign_tile_levels(t: PafTable, order: np.ndarray,

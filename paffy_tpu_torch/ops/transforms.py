@@ -184,12 +184,12 @@ def query_walk_violation(t: PafTable, seen_qlens: dict | None = None) -> int:
     walk = native.query_walk_violation(t)
     bad = walk if walk >= 0 else n
     if seen_qlens is not None:
-        uniq, first_idx, inv = np.unique(t.qname, return_index=True,
-                                         return_inverse=True)
-        expected = np.array([seen_qlens.setdefault(nm, int(t.qlen[i]))
-                             for nm, i in zip(uniq, first_idx)],
+        ids, names, _ = native.first_seen_ids(t.qname)
+        qlens = t.qlen[native.first_rows(ids)].tolist()
+        expected = np.array([seen_qlens.setdefault(nm, ln)
+                             for nm, ln in zip(names, qlens)],
                             dtype=np.int64)
-        nb = np.flatnonzero(t.qlen != expected[inv])
+        nb = np.flatnonzero(t.qlen != expected[ids])
         if len(nb):
             bad = min(bad, int(nb[0]))
     return -1 if bad == n else bad

@@ -62,7 +62,7 @@ from functools import partial
 import numpy as np
 import torch
 
-from paffy_tpu_torch import phases
+from paffy_tpu_torch import native, phases
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.core.model import PafTable
 from paffy_tpu_torch.ops.chain import paf_chain
@@ -76,10 +76,9 @@ from paffy_tpu_torch.ops.tile import (assign_tile_levels_sharded,
 def split_by_contig(t: PafTable, by_query: bool = True) -> list[np.ndarray]:
     """Record indices grouped by contig name, groups in first-seen order
     (the split_file axis, impl/paf_split_file.c:142-170)."""
-    groups: dict[str, list[int]] = {}
-    for i, name in enumerate((t.qname if by_query else t.tname).tolist()):
-        groups.setdefault(name, []).append(i)
-    return [np.array(g, dtype=np.int64) for g in groups.values()]
+    ids, names, _ = native.first_seen_ids(t.qname if by_query else t.tname)
+    perm, goff = native.id_groups(ids, len(names))
+    return [perm[a:b] for a, b in zip(goff[:-1], goff[1:])]
 
 
 def assign_shards(groups: list[np.ndarray], lengths: list[int],

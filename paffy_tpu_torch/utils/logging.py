@@ -47,10 +47,6 @@ def set_log_level_from_string(level: str | None) -> None:
     logger.setLevel(_LEVELS[key])
 
 
-def get_log_level() -> int:
-    return logger.level
-
-
 def log_info(msg: str, *args) -> None:
     logger.info(msg, *args)
 

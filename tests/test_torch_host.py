@@ -374,21 +374,97 @@ def test_pack_ints13_and_copy_op_ranges():
         np.testing.assert_array_equal(x, y)
 
 
-def test_first_missing_seq_matches_paffy_tpu():
+# (record, query name, target name) put into the table; None keeps a name
+MISSING = {
+    "query": [(3, "zz", None)],
+    "target": [(5, None, "yy")],
+    "none": [],
+    "both-on-one-record": [(4, "zz", "yy")],
+    "recurring": [(2, None, "yy"), (6, "yy", None), (7, None, "yy")],
+    "at-record-0": [(0, None, "yy")],
+    "at-last-record": [(-1, "zz", None)],
+}
+
+
+@pytest.mark.parametrize("case", list(MISSING))
+def test_first_missing_seq_matches_paffy_tpu(case):
     from paffy_tpu.commands.simple import _first_missing_seq
     t, r, port, ref = pools_and_table(16)
-    rows = np.arange(len(t))
-    for qn, tn, at in (("zz", None, 3), (None, "yy", 5), (None, None, -1)):
-        tq, rq = t.take(rows), r.take(rows)
-        if at >= 0:
-            for tab in (tq, rq):
-                tab.qname = tab.qname.copy()
-                tab.tname = tab.tname.copy()
-                if qn:
-                    tab.qname[at] = qn
-                if tn:
-                    tab.tname[at] = tn
-        assert port.first_missing_seq(tq) == _first_missing_seq(ref, rq)
+    for tab in (t, r):
+        tab.qname = tab.qname.copy()
+        tab.tname = tab.tname.copy()
+        for at, qn, tn in MISSING[case]:
+            if qn:
+                tab.qname[at] = qn
+            if tn:
+                tab.tname[at] = tn
+    got = port.first_missing_seq(t)
+    assert got == _first_missing_seq(ref, r)
+    assert (got[0] == -1) == (case == "none")
+
+
+def test_offsets_for_names_the_first_missing_record_as_paffy_tpu():
+    t, r, port, ref = pools_and_table(16)
+    names = t.qname.copy()
+    names[len(names) // 2] = "zz"
+    names[-1] = "yy"
+    with pytest.raises(KeyError) as got:
+        port.offsets_for(names, "query")
+    with pytest.raises(KeyError) as want:
+        ref.offsets_for(names, "query")
+    assert str(got.value) == str(want.value) == \
+        repr("No query sequence named: zz found")
+
+
+def _shuffled_24(n=400):
+    rng = np.random.default_rng(24)
+    return [np.array([f"chr{k}" for k in rng.integers(0, 24, n)],
+                     dtype=object)]
+
+
+def _distinct_objects():
+    # equal strings built at run time, so no two rows share one object
+    col = np.array(["".join(["s", str(k // 3 % 2)]) for k in range(12)],
+                   dtype=object)
+    assert col[0] is not col[1] and col[0] == col[1]
+    return [col]
+
+
+FIRST_SEEN = {
+    "empty": lambda: [np.array([], dtype=object)],
+    "one-name": lambda: [np.array(["a"] * 7, dtype=object)],
+    "long-runs": lambda: [np.array(["b"] * 50 + ["a"] * 30 + ["b"] * 20
+                                   + ["c"] * 40, dtype=object)],
+    "alternating": lambda: [np.array(["x", "y"] * 25, dtype=object)],
+    "shuffled-24": _shuffled_24,
+    "equal-strings-distinct-objects": _distinct_objects,
+    "two-columns-runs-break-apart": lambda: [
+        np.array(["q1"] * 6 + ["q2"] * 6 + ["q1"] * 3, dtype=object),
+        np.array(["t1"] * 4 + ["t2"] * 5 + ["t1"] * 6, dtype=object)],
+    "latin-1": lambda: [np.array(["\xe9chr1", "\xe9chr1", "chr\xff",
+                                  "\xe9chr1", "chr\xff|12|0"],
+                                 dtype=object)],
+}
+
+
+@pytest.mark.parametrize("case", list(FIRST_SEEN))
+def test_first_seen_ids(case):
+    cols = FIRST_SEEN[case]()
+    rows = [r if len(cols) > 1 else r[0]
+            for r in zip(*(c.tolist() for c in cols))]
+    keys = list(dict.fromkeys(rows))
+    want_ids = [keys.index(r) for r in rows]
+    want_runs = sum(1 for i, r in enumerate(rows)
+                    if i == 0 or r != rows[i - 1])
+    ids, got_keys, n_runs = native.first_seen_ids(*cols)
+    assert ids.dtype == np.int64
+    assert ids.tolist() == want_ids
+    assert got_keys == keys
+    assert n_runs == want_runs
+    assert native.first_rows(ids).tolist() == [rows.index(k) for k in keys]
+    perm, goff = native.id_groups(ids, len(keys))
+    assert [perm[a:b].tolist() for a, b in zip(goff[:-1], goff[1:])] == \
+        [[i for i, r in enumerate(rows) if r == k] for k in keys]
 
 
 @pytest.mark.parametrize("seed", [17, 18])
