@@ -192,6 +192,8 @@ _SIGNATURES = (
                                       _U8P, _I64P, _I64P]),
     ("match_intervals", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P, _I64P,
                               _I64P]),
+    ("tile_intervals", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P, _I64P,
+                             _I64P, _I64P]),
     ("query_walk_violation", _LL, [_LL, _I64P, _U8P, _I64P, _I64P, _I64P,
                                    _I64P]),
     ("encode_runs_per_mop", None, [_U8P, _LL, _I64P, _I64P, _I64P, _U8P,
@@ -807,6 +809,24 @@ def match_intervals(off, ops, lens, qstart):
                                 _p_i64(_i64(qstart)), _p_i64(rec),
                                 _p_i64(start), _p_i64(end)))
     return rec[:n], start[:n], end[:n]
+
+
+def tile_intervals(off, ops, lens, qstart):
+    """(run_off, istart, iend, n_runs): each record's aligned query bases
+    as CSR intervals, one per maximal stretch of touching aligned runs
+    (match_intervals' runs joined, zero-length ones dropped), and the
+    aligned runs read, in one C pass.  istart and iend are exact-size views
+    of n_ops-sized buffers of which only the pages written are touched."""
+    lib = get_lib()
+    run_off = np.empty(len(off), dtype=np.int64)
+    start, end = (np.empty(max(len(ops), 1), dtype=np.int64)
+                  for _ in range(2))
+    n_runs = np.zeros(1, dtype=np.int64)
+    n = int(lib.tile_intervals(len(off) - 1, _p_i64(_i64(off)),
+                               _p_u8(_u8(ops)), _p_i64(_i64(lens)),
+                               _p_i64(_i64(qstart)), _p_i64(run_off),
+                               _p_i64(start), _p_i64(end), _p_i64(n_runs)))
+    return run_off, start[:n], end[:n], int(n_runs[0])
 
 
 def query_walk_violation(t) -> int:

@@ -1608,6 +1608,55 @@ long long match_intervals(long long n_records, const long long* off,
     return out;
 }
 
+// K5's interval arguments (ops/tile.sweep_arguments): the walk of
+// match_intervals, with each record's touching aligned runs joined into one
+// interval per maximal stretch of aligned query bases (a run that starts
+// where the last one ended extends it, across a D; an I that advances the
+// query breaks it) and zero-length runs dropped, so a record's intervals
+// are disjoint, ascending and cover the same bases.  Writes the CSR offsets
+// run_off (n_records + 1) and start/end, which the caller sizes to n_ops;
+// *n_runs gets the aligned runs read.  Returns the intervals written.
+long long tile_intervals(long long n_records, const long long* off,
+                         const unsigned char* ops, const long long* lens,
+                         const long long* qstart, long long* run_off,
+                         long long* start, long long* end,
+                         long long* n_runs) {
+    long long out = 0, runs = 0;
+    run_off[0] = 0;
+    for (long long r = 0; r < n_records; ++r) {
+        long long q = qstart[r], s = 0, e = 0;   // the open stretch [s, e)
+        bool open = false;
+        for (long long k = off[r]; k < off[r + 1]; ++k) {
+            const unsigned char op = ops[k];
+            const long long len = lens[k];
+            if (op != 1 && op != 2) {       // aligned: M / = / X
+                ++runs;
+                if (len > 0) {
+                    if (!open || e != q) {  // not touching: a new stretch
+                        if (open) {
+                            start[out] = s;
+                            end[out] = e;
+                            ++out;
+                        }
+                        s = q;
+                        open = true;
+                    }
+                    e = q + len;
+                }
+            }
+            if (op != 2) q += len;          // all but query_delete advance
+        }
+        if (open) {
+            start[out] = s;
+            end[out] = e;
+            ++out;
+        }
+        run_off[r + 1] = out;
+    }
+    *n_runs = runs;
+    return out;
+}
+
 // Per-record unreliable-tail prefix-trim decision — the host production
 // path of ops/tailtrim._trim_counts (Bob Harris algorithm prefix half,
 // impl/paf.c:811-904).  Exact semantics of the numpy form: identities are

@@ -12,12 +12,14 @@ The sweep runs on the device, always (K5, ops/tile_device.py).  Unlike
 paffy_tpu, the port packs no coverage segments (``_sequence_offsets``),
 builds no padded [N, K] interval tensor and has no TILE_K_CAP or
 TILE_DEVICE_WORK_CAP host route: the kernel reads the intervals in CSR
-form (``run_off``, ``istart``, ``iend`` from ``match_intervals``) and each
-record's offset into one position space with each distinct query
-sequence's positions end to end, the arguments of the C sweep
-(native.tile_sweep) but its arena: the kernel keeps its counts on the
-chip.  However deep the records stack, the sweep stays on the device: it
-runs in batches of records whose histogram rows fit
+form (``run_off``, ``istart``, ``iend`` from ``native.tile_intervals``:
+one interval per maximal stretch of a record's touching aligned runs,
+which covers the bases its runs cover, so the levels are those of the
+per-run intervals) and each record's offset into one position space with
+each distinct query sequence's positions end to end, the arguments of the
+C sweep (native.tile_sweep) but its arena: the kernel keeps its counts on
+the chip.  However deep the records stack, the sweep stays on the device:
+it runs in batches of records whose histogram rows fit
 tile_device.HIST_BUDGET, one launch each.  On a mesh
 (``assign_tile_levels_sharded``), the distinct query sequences are cut
 into blocks over the mesh's data rows, each with its own position space.
@@ -29,8 +31,7 @@ import numpy as np
 
 from paffy_tpu_torch import devconf, native, phases
 from paffy_tpu_torch.core.model import PafTable
-from paffy_tpu_torch.ops.coverage import (EMPTY_TILE_LEVEL, SATURATION,
-                                          match_intervals)
+from paffy_tpu_torch.ops.coverage import EMPTY_TILE_LEVEL, SATURATION
 from paffy_tpu_torch.ops.tile_device import tile_sweep
 
 
@@ -42,17 +43,19 @@ def tile_sort_order(t: PafTable) -> np.ndarray:
 
 def sweep_arguments(t: PafTable):
     """(arena_off, run_off, istart, iend, arena_len): the C sweep's
-    arguments for ``t``, the arena laid out by first-seen query name.
-    Raises ValueError when one query name comes with two lengths."""
-    n = len(t)
+    arguments for ``t``, the arena laid out by first-seen query name, one
+    interval per stretch of touching aligned runs; counts the aligned runs
+    read and the intervals written.  Raises ValueError when one query name
+    comes with two lengths."""
     ids, _, _ = native.first_seen_ids(t.qname)
     qlen = t.qlen[native.first_rows(ids)]
     bad = np.flatnonzero(t.qlen != qlen[ids])
     if len(bad):
         raise ValueError(f"query {t.qname[bad[0]]!r} has inconsistent "
                          f"lengths")
-    rec, istart, iend = match_intervals(t)
-    run_off = np.searchsorted(rec, np.arange(n + 1)).astype(np.int64)
+    run_off, istart, iend, n_runs = native.tile_intervals(
+        t.off, t.ops, t.lens, t.qstart)
+    phases.count(runs=n_runs, intervals=len(istart))
     return ((np.cumsum(qlen) - qlen)[ids], run_off, istart, iend,
             int(qlen.sum()))
 

@@ -7,10 +7,11 @@ without its arena, as tensors: the processing order, each record's offset
 into one position space (each distinct query sequence's positions laid end
 to end) and the records' aligned query intervals in CSR form (run_off,
 istart, iend; a record's intervals disjoint and ascending, as
-native.match_intervals gives them).  Taken in order, each record adds one
-to the count of each of its bases, saturating at the cap; it returns the
-levels: the ((n+1)//2)-th smallest of a record's n new counts, or
-EMPTY_TILE_LEVEL without an aligned base or outside the order.
+native.tile_intervals gives them, one per stretch of aligned bases).
+Taken in order, each record adds one to the count of each of its bases,
+saturating at the cap; it returns the levels: the ((n+1)//2)-th smallest
+of a record's n new counts, or EMPTY_TILE_LEVEL without an aligned base or
+outside the order.
 
 On a CUDA tensor the wrapper builds the tile plan (``tile_plan``, torch
 ops on the card) and launches the CUDA kernels (csrc/tile_sweep.cu): one

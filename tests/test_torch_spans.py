@@ -10,7 +10,8 @@ span is recorded and ``SECONDS`` holds the same phases.  add_mismatches
 and view through paffy_main nest no phase in one of its own name; the
 counters go to the innermost open span, and nowhere with tracing off;
 the chain's ``extract`` counts its records and chains, its ``window`` the
-runs of names it hashed;
+runs of names it hashed, the tile's ``intervals`` the aligned runs it read
+and the intervals it wrote;
 PAFFY_TPU_PROFILE's profiler, of every thread, holds the workers' spans;
 and a host command still loads no torch."""
 
@@ -20,6 +21,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -28,8 +30,9 @@ import chip_smoke
 from paffy_tpu_torch import native, phases
 from paffy_tpu_torch.cli import paffy_main
 from paffy_tpu_torch.core import pafio
-from paffy_tpu_torch.ops import chain
-from paffy_tpu_torch.ops.mismatch import SequencePool
+from paffy_tpu_torch.ops import chain, tile
+from paffy_tpu_torch.ops.coverage import match_intervals
+from paffy_tpu_torch.ops.mismatch import SequencePool, encode_mismatches
 from paffy_tpu_torch.parallel import runner
 from paffy_tpu_torch.utils import logging as plog
 
@@ -252,6 +255,30 @@ def test_chain_spans_count_records_chains_and_key_runs(pair):
     # the grouping's window and the DP arguments' (ops.chain_device)
     keyed = [s.counts for s in spans if s.name == "window" and s.counts]
     assert keyed == [{"key_runs": 2}]
+
+
+def test_tile_intervals_span_counts_runs_and_intervals(pair):
+    """A traced assign_tile_levels on add_mismatches' =/X output: its
+    ``intervals`` span counts the aligned runs of the table and the
+    stretches of touching nonempty runs they join into."""
+    fa, paf = pair
+    with open(paf, "rb") as fh:
+        t = pafio.parse_paf_data(fh.read())
+    t = encode_mismatches(t, SequencePool.from_fasta_files([fa]))
+    rec, start, end = match_intervals(t)
+    keep = end > start
+    rec, start, end = rec[keep], start[keep], end[keep]
+    joins = (rec[1:] == rec[:-1]) & (start[1:] == end[:-1])
+    want = {"runs": len(keep), "intervals": len(rec) - int(joins.sum())}
+    assert want["runs"] > 10 * want["intervals"] > 0
+    order = tile.tile_sort_order(t)
+    levels, spans, seconds = traced(
+        lambda: tile.assign_tile_levels(t, order))
+    check_tree(spans, seconds)
+    (span,) = [s for s in spans if s.name == "intervals"]
+    assert span.counts == want
+    np.testing.assert_array_equal(levels,
+                                  tile.assign_tile_levels(t, order))
 
 
 def test_a_block_that_raises_leaves_no_span():

@@ -13,7 +13,12 @@ runs in 1, 2 or many batches with its counts carried between them; the
 tile plan covers each record's span, bounds its counts and cuts its rows
 into batches that fit the budget; chip_smoke.deep_tile_input at a small
 size tiles as paffy_tpu tiles it; the command gives the same bytes and
-exit codes, including the walk-violation abort that writes nothing."""
+exit codes, including the walk-violation abort that writes nothing.
+native.tile_intervals gives each record one interval per maximal stretch
+of its touching aligned runs, covering the bases match_intervals' runs
+cover, and the CSR of them; on add_mismatches' =/X output it joins many
+runs into one, and the levels, in one batch or many, are paffy_tpu's,
+the C sweep's and those of the per-run intervals."""
 
 import numpy as np
 import pytest
@@ -26,7 +31,8 @@ from paffy_tpu_torch import native
 from paffy_tpu_torch.cli import paffy_main as port_main
 from paffy_tpu_torch.core import pafio
 from paffy_tpu_torch.ops import tile, tile_device
-from paffy_tpu_torch.ops.coverage import EMPTY_TILE_LEVEL, SATURATION
+from paffy_tpu_torch.ops.coverage import (EMPTY_TILE_LEVEL, SATURATION,
+                                          match_intervals)
 from ref_native import paffy_tpu_lib  # noqa: F401
 from synthdata import make_workload
 
@@ -427,3 +433,119 @@ def test_tile_of_encoded_input(files, tmp_path):
     ref, port = both(["tile", "-i", str(am)], tmp_path)
     assert port == ref and ref[0] == (0, None)
     assert pafio.parse_paf_data(am.read_bytes()).ops.max() == 4   # X
+
+
+# ------------------------------------------ the joined intervals of K5
+
+def joined_runs(t):
+    """Each record's union of match_intervals' runs as maximal disjoint,
+    non-touching intervals, in Python: a list of [(start, end), ...] per
+    record."""
+    rec, start, end = match_intervals(t)
+    out = [[] for _ in range(len(t))]
+    for r, a, b in zip(rec.tolist(), start.tolist(), end.tolist()):
+        if b <= a:
+            continue
+        if out[r] and out[r][-1][1] >= a:
+            out[r][-1] = (out[r][-1][0], max(out[r][-1][1], b))
+        else:
+            out[r].append((a, b))
+    return out
+
+
+def test_tile_intervals_joins_touching_runs():
+    # 5= 3X 2D 4= touch (the D moves no query base); 1I breaks; 6M, a 0X
+    # dropped, 3= touch again; the second record has no aligned base, the
+    # third no cigar; the fourth starts where the first ends, and stays
+    # its own
+    text = ("s0\t100\t10\t32\t+\tt\t1000\t5\t30\t21\t23\t60\t"
+            "cg:Z:5=3X2D4=1I6M0X3=\n"
+            "s0\t100\t40\t47\t-\tt\t1000\t5\t8\t0\t7\t60\t"
+            "cg:Z:4I3D3I0M\n"
+            "s1\t100\t0\t9\t+\tt\t1000\t5\t14\t9\t9\t60\n"
+            "s0\t100\t32\t35\t+\tt\t1000\t5\t8\t3\t3\t60\t"
+            "cg:Z:3=\n")
+    t = pafio.parse_paf_text(text)
+    run_off, istart, iend, n_runs = native.tile_intervals(
+        t.off, t.ops, t.lens, t.qstart)
+    assert run_off.tolist() == [0, 2, 2, 2, 3]
+    assert list(zip(istart.tolist(), iend.tolist())) == [(10, 22), (23, 32),
+                                                         (32, 35)]
+    assert n_runs == 8 == len(match_intervals(t)[0])
+
+
+@pytest.mark.parametrize("seed", [11, 12, 13, 14])
+def test_tile_intervals_cover_the_runs_bases(seed):
+    text = tile_text(seed, n_seqs=3, n_records=120)
+    t = pafio.parse_paf_text(text)
+    assert set(t.strand.tolist()) == {True, False}
+    run_off, istart, iend, n_runs = native.tile_intervals(
+        t.off, t.ops, t.lens, t.qstart)
+    rec, _, _ = match_intervals(t)
+    assert n_runs == len(rec)
+    assert run_off.dtype == istart.dtype == iend.dtype == np.int64
+    assert len(run_off) == len(t) + 1 and run_off[0] == 0
+    assert run_off[-1] == len(istart) == len(iend)
+    assert (np.diff(run_off) >= 0).all()
+    want = joined_runs(t)
+    for r in range(len(t)):
+        a, b = run_off[r], run_off[r + 1]
+        s, e = istart[a:b], iend[a:b]
+        assert (e > s).all()                        # none empty
+        assert (s[1:] > e[:-1]).all()               # ascending, apart
+        assert list(zip(s.tolist(), e.tolist())) == want[r]
+    # the table holds each kind the join must meet
+    has_cigar = np.diff(t.off) > 0
+    assert not has_cigar.all() and (np.diff(run_off)[has_cigar] == 0).any()
+    assert (t.lens[(t.ops != 1) & (t.ops != 2)] == 0).any()
+    assert {1, 2} <= set(t.ops.tolist()) and n_runs > len(istart)
+
+
+@pytest.fixture(scope="module")
+def encoded(tmp_path_factory):
+    """add_mismatches' =/X output (paffy_tpu's) of a workload whose
+    windows overlap, parsed by both packages."""
+    d = tmp_path_factory.mktemp("tile_encoded")
+    seqs, lines = make_workload(seed=8, length=20000, n_windows=40,
+                                window=2000, step=300)
+    fa, paf, am = d / "s.fa", d / "in.paf", d / "am.paf"
+    fa.write_text("".join(f">{k}\n{v}\n" for k, v in seqs.items()))
+    paf.write_text("\n".join(lines) + "\n")
+    assert ref_main(["add_mismatches", "-i", str(paf), str(fa), "-o",
+                     str(am)]) == 0
+    data = am.read_bytes()
+    return pafio.parse_paf_data(data), ref_pafio.parse_paf_data(data)
+
+
+@pytest.mark.parametrize("batches", ["one", "many"])
+def test_encoded_input_joins_runs_and_tiles_as_paffy_tpu(encoded,
+                                                         monkeypatch,
+                                                         batches):
+    t, r = encoded
+    assert set(t.ops.tolist()) >= {3, 4}
+    order = tile.tile_sort_order(t)
+    ref = ref_tile.assign_tile_levels(r, order)
+    args, total = sweep_tensors(t, order)
+    run_off, istart, _, n_runs = native.tile_intervals(
+        t.off, t.ops, t.lens, t.qstart)
+    assert n_runs > 4 * len(istart)                 # the join engages
+    assert torch.equal(args[2], torch.from_numpy(run_off))
+    # the per-run intervals in CSR form give the same levels
+    rec, pstart, pend = match_intervals(t)
+    per_run = [torch.from_numpy(np.searchsorted(rec, np.arange(len(t) + 1))),
+               torch.from_numpy(pstart), torch.from_numpy(pend)]
+    np.testing.assert_array_equal(tile.assign_tile_levels(t, order), ref)
+    np.testing.assert_array_equal(c_sweep(t, order, SATURATION), ref)
+    np.testing.assert_array_equal(
+        tile_device.tile_sweep_plain(*args[:2], *per_run).numpy(), ref)
+    if batches == "many":
+        plan = tile_device.tile_plan(*args, tile=512)
+        widest = int(torch.diff(plan.row_off).max())
+        monkeypatch.setattr(tile_device, "HIST_BUDGET",
+                            4 * max(widest, plan.n_bins // 4))
+        assert len(tile_device.tile_plan(*args, tile=512).batch_off) > 4
+    got = tile_device.tile_sweep_tiled_plain(*args, tile=512).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, c_sweep_arrays(
+        *(a.numpy() for a in args), SATURATION, total))
+    assert got[got != EMPTY_TILE_LEVEL].max() > 2
