@@ -281,12 +281,15 @@ _PARSE_MT_BYTES = 4 << 20   # thread the parse above 4 MB of input
 
 
 def _names(raw: bytes, qoff, toff, n):
-    qnames = np.empty(n, dtype=object)
-    tnames = np.empty(n, dtype=object)
-    for i in range(n):
-        qnames[i] = raw[qoff[i]: raw.index(b"\0", qoff[i])].decode("latin-1")
-        tnames[i] = raw[toff[i]: raw.index(b"\0", toff[i])].decode("latin-1")
-    return qnames, tnames
+    """Each record's query and target name (object arrays of str) from the
+    fill pass's pool of NUL-terminated names: the pool decoded and split
+    once, each name found by its offset among the names' starts."""
+    parts = np.empty(raw.count(b"\0") + 1, dtype=object)
+    parts[:] = raw.decode("latin-1").split("\0")
+    starts = np.flatnonzero(np.frombuffer(raw, dtype=np.uint8) == 0) + 1
+    starts = np.concatenate([[0], starts])
+    return (parts[np.searchsorted(starts, qoff)],
+            parts[np.searchsorted(starts, toff)])
 
 
 def parse_paf_bytes(data: bytes, n_threads: int | None = None):

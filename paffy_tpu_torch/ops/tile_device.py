@@ -52,7 +52,9 @@ class TilePlan(NamedTuple):
     for a record without a span); ``batch_off``: the batches, consecutive
     ranges [batch_off[k], batch_off[k + 1]) of processing positions whose
     rows fit HIST_BUDGET bytes; ``batch_row``: row_off at each of them;
-    ``n_bins``: the rows' total."""
+    ``n_bins``: the rows' total; ``carried``: the (tile, batch) pairs in
+    which a batch takes the tile's counts from the batch before (the tile
+    has pairs in the batch and in an earlier one), 0 with one batch."""
     tile_ids: torch.Tensor
     pair_off: torch.Tensor
     pair_pos: torch.Tensor
@@ -60,6 +62,16 @@ class TilePlan(NamedTuple):
     batch_off: list
     batch_row: list
     n_bins: int
+    carried: int = 0
+
+    def counts(self, tile: int = TILE) -> dict:
+        """The plan's counters: ``batches``, the launch pairs of walk and
+        median; ``hist_mb``, the rows' MB, 4 bytes a bin; ``carried_mb``,
+        the MB of counts carried between batches, 4 bytes (2 stored, 2
+        loaded) a position of each ``carried`` pair's tile."""
+        return {"batches": len(self.batch_off) - 1,
+                "hist_mb": 4 * self.n_bins / 1e6,
+                "carried_mb": 4 * tile * self.carried / 1e6}
 
 
 def tile_plan(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
@@ -118,23 +130,30 @@ def tile_plan(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
         0, pair_pos, (in_tile + 1).clamp(max=cap), "amax")
     row_off = torch.cat([z, torch.cumsum(bins, 0)])
     n_bins, = devconf.readback(row_off[-1:])
-    batch_off, batch_row = [0, m], [0, n_bins]
+    batch_off, batch_row, carried = [0, m], [0, n_bins], 0
     if 4 * n_bins > HIST_BUDGET:
         widest = int(bins.max())
         if 4 * widest > HIST_BUDGET:
             raise ValueError(f"HIST_BUDGET ({HIST_BUDGET} bytes) is below "
                              f"one record's histogram row ({4 * widest} "
                              f"bytes)")
-        # each batch ends at the last position whose row end fits
+        # the tile's pair before each pair; m, after every cut, for its first
+        prev = torch.where(in_tile > 0, pair_pos.roll(1), m)
+        # each batch ends at the last position whose row end fits; the tiles
+        # it takes from the batch before have a pair before its start and
+        # the next one in it, counted in the same readback
         batch_off, batch_row, lim = [0], [0], HIST_BUDGET // 4
         while batch_off[-1] < m:
-            k = torch.searchsorted(row_off, row_off[batch_off[-1]] + lim,
+            p0 = batch_off[-1]
+            k = torch.searchsorted(row_off, row_off[p0] + lim,
                                    right=True) - 1
-            k, r = devconf.readback(torch.stack([k, row_off[k]]))
+            taken = ((prev < p0) & (pair_pos >= p0) & (pair_pos < k)).sum()
+            k, r, c = devconf.readback(torch.stack([k, row_off[k], taken]))
             batch_off.append(k)
             batch_row.append(r)
+            carried += c
     return TilePlan(tile_ids, pair_off, pair_pos, row_off, batch_off,
-                    batch_row, n_bins)
+                    batch_row, n_bins, carried)
 
 
 def tile_sweep_tiled_plain(order, arena_off, run_off, istart, iend,
@@ -233,8 +252,11 @@ def tile_sweep(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
     one launch per batch of the plan, the plain sequential version for CPU
     tensors.  Every argument is a 1-D int64 tensor on one device; ``tile``
     (1..MAX_TILE) is the kernel's tile of positions.  The plan's cost is
-    timed as the phase "K5 tiles", its readbacks (devconf.readback)
-    counted there as waits on the card while tracing."""
+    timed as the phase "K5 tiles"; while tracing, its readbacks
+    (devconf.readback) are counted there as waits on the card, with the
+    plan's counters (``TilePlan.counts``: batches, hist_mb, carried_mb),
+    and each batch's launches are a span "K5 batch" (ids ``batch``,
+    ``records``, ``bins``)."""
     args = (order, arena_off, run_off, istart, iend)
     if any(x.dtype != torch.int64 or x.dim() != 1 for x in args):
         raise ValueError("order, arena_off, run_off, istart and iend must be "
@@ -260,6 +282,7 @@ def tile_sweep(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
     args = [x.contiguous() for x in args]
     with phases.timed("K5 tiles"):
         plan = tile_plan(*args, cap, tile)
+        phases.count(**plan.counts(tile))
     n_tiles = plan.tile_ids.numel()
     rows = [b - a for a, b in zip(plan.batch_row[:-1], plan.batch_row[1:])]
     hist = torch.empty(max(rows), dtype=torch.int32, device=order.device)
@@ -271,17 +294,19 @@ def tile_sweep(order, arena_off, run_off, istart, iend, cap: int = SATURATION,
     for b, width in enumerate(rows):
         p0, p1 = plan.batch_off[b], plan.batch_off[b + 1]
         base = plan.batch_row[b]
-        hist[:width].zero_()
-        if n_tiles:
-            kernels.check(lib.paffy_tile_walk(
-                dev, n_tiles, plan.tile_ids.data_ptr(),
-                plan.pair_off.data_ptr(), plan.pair_pos.data_ptr(),
-                *(x.data_ptr() for x in args), plan.row_off.data_ptr(),
-                hist.data_ptr(), base, p0, p1,
-                None if carry is None else carry.data_ptr(), cap, tile,
-                stream), "tile_sweep")
-        kernels.check(lib.paffy_tile_median(
-            dev, p0, p1, args[0].data_ptr(), plan.row_off.data_ptr(),
-            hist.data_ptr(), base, levels.data_ptr(), stream), "tile_sweep")
-        kernels.count_launch("tile_sweep")
+        with phases.span("K5 batch", batch=b, records=p1 - p0, bins=width):
+            hist[:width].zero_()
+            if n_tiles:
+                kernels.check(lib.paffy_tile_walk(
+                    dev, n_tiles, plan.tile_ids.data_ptr(),
+                    plan.pair_off.data_ptr(), plan.pair_pos.data_ptr(),
+                    *(x.data_ptr() for x in args), plan.row_off.data_ptr(),
+                    hist.data_ptr(), base, p0, p1,
+                    None if carry is None else carry.data_ptr(), cap, tile,
+                    stream), "tile_sweep")
+            kernels.check(lib.paffy_tile_median(
+                dev, p0, p1, args[0].data_ptr(), plan.row_off.data_ptr(),
+                hist.data_ptr(), base, levels.data_ptr(), stream),
+                "tile_sweep")
+            kernels.count_launch("tile_sweep")
     return levels

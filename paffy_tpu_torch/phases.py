@@ -38,7 +38,12 @@ while tracing is on:
   * ``bytes_up``, ``bytes_down``: bytes across the link in
     ``devconf.upload`` and in those readbacks, on CUDA only;
   * ``groups``, ``workers``: on ``run_pipeline``'s span, the call's
-    contig groups and the threads that ran them (1 when inline).
+    contig groups and the threads that ran them (1 when inline);
+  * ``batches``, ``hist_mb``, ``carried_mb``: on K5's plan, the phase "K5
+    tiles", its launch pairs, its histogram rows' MB and the MB of counts
+    carried between its batches (ops/tile_device.TilePlan.counts); each
+    batch's launches are a span "K5 batch" (``batch``, ``records``,
+    ``bins``).
 
 ``reset`` clears ``SECONDS`` and leaves ``SPANS``: a reader takes the
 spans between its own marks on the same clock.  A block that raises adds
